@@ -1,0 +1,14 @@
+"""gymgo_tpu_torch: the batched Go environment of ``gymgo_tpu`` in PyTorch, for
+an NVIDIA H100.
+
+The same 6-channel int8 state ``(B, 6, N, N)`` is stepped in lockstep for
+thousands of games; the bundle flood that classifies groups and claims areas
+every step is a hand CUDA kernel (``csrc/bundle_flood.cu``).  Entry points run
+on ``cuda`` unless the caller passes another device, and raise when there is no
+card.  This package imports nothing of JAX or of ``gymgo_tpu``.
+"""
+
+from gymgo_tpu_torch import govars
+from gymgo_tpu_torch.config import HEURISTIC, REAL, EnvConfig
+
+__version__ = "0.1.0"

@@ -1,0 +1,98 @@
+"""Move masks and the on-device uniform sampler (counterpart of
+``gymgo_tpu.core.actions``).
+
+The sampler draws one random word per env, ``k ~ U[0, num_valid]``, and picks
+the k-th valid move by rank (pass ranks last).  The draw and the rank-select
+are separate functions, so a test can hand the rank-select the JAX package's
+``k`` and compare actions exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gymgo_tpu_torch import govars
+
+__all__ = [
+    "batch_invalid_moves",
+    "batch_valid_moves",
+    "kth_valid_actions",
+    "draw_k",
+    "uniform_random_actions",
+    "uniform_random_actions_planes",
+]
+
+
+def batch_invalid_moves(states: torch.Tensor) -> torch.Tensor:
+    """Flat invalid-move vectors float32 ``(B, N*N+1)``; pass (last column)
+    always 0."""
+    b = states.shape[0]
+    flat = states[:, govars.INVD_CHNL].reshape(b, -1).to(torch.float32)
+    return torch.cat([flat, flat.new_zeros((b, 1))], dim=1)
+
+
+def batch_valid_moves(states: torch.Tensor) -> torch.Tensor:
+    return 1.0 - batch_invalid_moves(states)
+
+
+def kth_valid_actions(valid_board: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The ``k``-th valid board move (0-based rank along the flat board) of each
+    env, or pass (index ``m``) when ``k`` equals the number of valid moves.
+
+    ``valid_board`` is bool ``(B, m)``; ``k`` is integer ``(B,)`` in
+    ``[0, num_valid]``.  For square ``m = n*n`` a two-level select (a per-row
+    count, then one row) touches ``(B, m)`` only twice; otherwise a flat
+    cumulative count.  Both pick the same move.
+    """
+    b, m = valid_board.shape
+    k = k.to(torch.int64)
+    n = int(round(m ** 0.5))
+    if n * n != m:
+        csum = valid_board.to(torch.int32).cumsum(dim=-1)
+        num_board = csum[:, -1]
+        hit = valid_board & (csum == (k + 1)[:, None])
+        board_choice = hit.to(torch.uint8).argmax(dim=-1)
+        return torch.where(k == num_board, m, board_choice).to(torch.int32)
+
+    v = valid_board.view(b, n, n)
+    row_cnt = v.sum(dim=2, dtype=torch.int32)  # (B, n)
+    row_csum = row_cnt.cumsum(dim=1)
+    num_board = row_csum[:, -1]
+    r = (row_csum > k[:, None]).to(torch.uint8).argmax(dim=1)  # row holding rank k
+    before = (row_csum - row_cnt).gather(1, r[:, None])[:, 0]  # valids above row r
+    vrow = v.gather(1, r[:, None, None].expand(b, 1, n))[:, 0]  # (B, n) row r
+    ccol = vrow.to(torch.int32).cumsum(dim=1)
+    within = k - before + 1  # 1-based rank inside row r
+    col = (vrow & (ccol == within[:, None])).to(torch.uint8).argmax(dim=1)
+    board_choice = r * n + col
+    return torch.where(k == num_board, m, board_choice).to(torch.int32)
+
+
+def draw_k(generator: torch.Generator, num_valid: torch.Tensor) -> torch.Tensor:
+    """k ~ U[0, num_valid] per env (int64), with no host sync.
+
+    One 31-bit word per env scaled by multiply-and-shift; the bias is below
+    (num_valid + 1) / 2^31.
+    """
+    word = torch.randint(
+        0, 1 << 31, num_valid.shape, generator=generator,
+        device=num_valid.device, dtype=torch.int64,
+    )
+    return (word * (num_valid.to(torch.int64) + 1)) >> 31
+
+
+def _uniform_from_valid(generator, valid_board):
+    k = draw_k(generator, valid_board.sum(dim=1, dtype=torch.int32))
+    return kth_valid_actions(valid_board, k)
+
+
+def uniform_random_actions(generator: torch.Generator, states: torch.Tensor) -> torch.Tensor:
+    """Uniform draw over each env's valid actions (pass included)."""
+    b = states.shape[0]
+    return _uniform_from_valid(generator, states[:, govars.INVD_CHNL].reshape(b, -1) == 0)
+
+
+def uniform_random_actions_planes(generator: torch.Generator, ps) -> torch.Tensor:
+    """``uniform_random_actions`` on the planes state (reads its invd plane)."""
+    b = ps.invd.shape[0]
+    return _uniform_from_valid(generator, ~ps.invd.reshape(b, -1))

@@ -1,0 +1,66 @@
+"""The bundle-flood kernel on a CUDA card: against its plain version, on the
+rollout, and on bad input.  Imports no JAX, so it runs on a machine without
+it (``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``); every
+test skips where there is no card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gymgo_tpu_torch.config import EnvConfig
+from gymgo_tpu_torch.core.flood import bundle_flood_plain
+from gymgo_tpu_torch.core.state import batch_init_state
+from gymgo_tpu_torch.env.batch_env import rollout
+from gymgo_tpu_torch.ops import bundle_flood as tbundle
+from torch_boards import adversarial_boards, random_boards
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [5, 9, 19, 22])
+def test_kernel_matches_plain(n, cuda_device):
+    a, b = random_boards(np.random.default_rng(4), 333, n)
+    aa, ab = adversarial_boards(n)
+    a = torch.from_numpy(np.concatenate([a, aa])).to(cuda_device)
+    b = torch.from_numpy(np.concatenate([b, ab])).to(cuda_device)
+    launches = tbundle.BUNDLE_FLOOD.launches
+    got = tbundle.bundle_flood_cuda(a, b)
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 1
+    # bit for bit: integer words
+    assert torch.equal(got.cpu(), bundle_flood_plain(a.cpu(), b.cpu()))
+    assert torch.equal(tbundle.bundle_flood(a.to(torch.uint8), b.to(torch.uint8)), got)
+
+
+def test_rollout_goes_through_the_kernel_and_replays_on_cpu(cuda_device):
+    cfg = EnvConfig(board_size=9, batch_size=96, reward_method="heuristic", auto_reset=True)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    launches = tbundle.BUNDLE_FLOOD.launches
+    r = rollout(g, batch_init_state(96, 9, device=cuda_device), 150, cfg)
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 151  # one per step + the seed
+    assert r.dones.any() and not r.invalid.any()
+    acts = iter(r.actions.cpu())
+    rc = rollout(torch.Generator(), batch_init_state(96, 9, device="cpu"), 150, cfg,
+                 policy_fn=lambda _g, _s: next(acts))
+    for field in ("final_states", "rewards", "dones"):
+        assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
+
+
+def test_kernel_rejects_bad_input(cuda_device):
+    ok = torch.zeros((2, 9, 9), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        tbundle.bundle_flood_cuda(ok.int(), ok.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        tbundle.bundle_flood_cuda(ok.transpose(1, 2), ok.transpose(1, 2))
+    with pytest.raises(ValueError, match="511"):
+        big = torch.zeros((1, 23, 23), dtype=torch.bool, device=cuda_device)
+        tbundle.bundle_flood_cuda(big, big)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbundle.bundle_flood_cuda(ok, ok.cpu())

@@ -1,0 +1,67 @@
+"""gymgo_tpu_torch stands alone: it imports neither JAX nor gymgo_tpu, and its
+entry points run on CUDA unless told otherwise."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import gymgo_tpu_torch
+from gymgo_tpu_torch.config import EnvConfig
+from gymgo_tpu_torch.core import state as tstate
+from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+_REPO = Path(__file__).resolve().parent.parent
+
+_CHECK = """
+import importlib, pkgutil, sys
+import gymgo_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gymgo_tpu_torch.__path__, "gymgo_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "gymgo_tpu.")) or m == "gymgo_tpu")
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_gymgo_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _CHECK], cwd=_REPO, capture_output=True, text=True, check=True,
+    ).stdout.split(maxsplit=1)
+    n_modules, bad = int(out[0]), out[1].strip()
+    assert n_modules >= 12, n_modules
+    assert bad == "[]", bad
+
+
+def test_every_module_is_found():
+    names = {m.name for m in pkgutil.walk_packages(gymgo_tpu_torch.__path__, "gymgo_tpu_torch.")}
+    for name in ("core.flood", "core.step", "core.actions", "core.score", "core.state",
+                 "ops.bundle_flood", "env.batch_env", "convert", "govars", "config"):
+        assert f"gymgo_tpu_torch.{name}" in names
+
+
+def test_kernel_source_ships_with_the_package():
+    from gymgo_tpu_torch.ops import bundle_flood
+
+    assert bundle_flood.SOURCE.is_file()
+    assert "sm_90a" in " ".join(bundle_flood.NVCC_FLAGS)
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
+    cfg = EnvConfig(board_size=9, batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchGoEnv(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.batch_init_state(4, 9)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tstate.resolve_device("cuda")
+    assert BatchGoEnv(cfg, device="cpu").reset().device.type == "cpu"
