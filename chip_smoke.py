@@ -2,28 +2,45 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and the script exits non-zero:
+Phases, one line each; any failure raises and the script exits non-zero.
+Phases 3-7 run the default route (the bundle flood, ``GYMGO_FLOOD=bitpack``),
+phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
 
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: nvcc builds the bundle-flood kernel from ``gymgo_tpu_torch/csrc``;
-  3. kernel vs plain: the kernel's int32 word equals the plain PyTorch
+  2. build: nvcc builds both flood kernels from ``gymgo_tpu_torch/csrc``, in
+     parallel, and prints each one's ptxas line;
+  3. kernel vs plain: the bundle kernel's int32 word equals the plain PyTorch
      version's bit for bit, on random boards at N = 5, 9, 19, 22, on serpentine
      and staircase boards, and on steady-state 19x19 boards from a rollout;
   4. main path: ``rollout`` at 19x19, B = 12288, heuristic reward, auto-reset,
      uniform sampler: a 768-step warmup, then 5 timed windows of 64 steps, each
      ending on a scalar checksum fetch; the kernel's launch count must grow by
-     exactly one per step plus one seeding call per rollout;
+     exactly one per step plus one seeding call per rollout, and the minmax
+     kernel's must stay 0;
   5. replay: a 19x19, B = 256, 200-step rollout on the card, from steady-state
      boards of phase 4, is replayed with its actions on the CPU plain path;
      states, rewards and dones must agree;
   6. timing: the kernel against the plain version at B = 12288 on the
      steady-state boards of phase 4, with CUDA events, beside the byte bound;
   7. profile: torch.profiler over 16 main-path steps: device time by kernel
-     and the device's busy share of the wall time.
+     and the device's busy share of the wall time;
+  8. minmax kernel vs plain: its int16 (mn, mx) equal the plain version's on
+     every cell, on random boards at N = 5, 9, 19, 22, 32, on serpentine and
+     staircase boards, and on the steady-state boards of phase 4;
+  9. minmax route: ``rollout`` as in phase 4, from phase 4's final states, 5
+     timed windows of 64 steps; the minmax kernel's launch count must grow by
+     exactly one per step plus one per rollout call, the bundle kernel's not
+     at all;
+ 10. route equivalence: phase 9's first window replayed with its actions on
+     the default route on the card, and a B = 256, 200-step minmax-route
+     rollout replayed on the CPU plain path; states, rewards and dones must
+     agree;
+ 11. timing: the minmax kernel against its plain version on the steady-state
+     boards of phase 4, with CUDA events, beside the byte bound.
 
-The line before the last is a JSON object with the kernel's numbers; the last
-line is ``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero
-without printing a result when CUDA is unavailable.
+The line before the nvidia-smi line is a JSON object with both kernels'
+numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
+exits non-zero without printing a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -65,6 +83,27 @@ def staircase(n):
     return m
 
 
+def board_cases(dev, gen, sizes, shaped_sizes):
+    """(name, mover, opp) cases: 1237 random boards at each of ``sizes``, and
+    serpentine and staircase boards at each of ``shaped_sizes``."""
+    cases = []
+    for n in sizes:
+        r = torch.rand((1237, n, n), generator=gen, device=dev)
+        dens = torch.rand((1237, 1, 1), generator=gen, device=dev) * 0.9
+        a = r < dens / 2
+        b = (r >= dens / 2) & (r < dens)
+        cases.append((f"random N={n} B=1237", a.contiguous(), b.contiguous()))
+    for maker in (serpentine, staircase):
+        for n in shaped_sizes:
+            mask = maker(n).to(dev)
+            none = torch.zeros_like(mask)
+            stack = lambda *xs: torch.stack(xs).contiguous()
+            cases.append((f"{maker.__name__} N={n}",
+                          stack(mask, none, ~mask, mask),
+                          stack(none, mask, none, ~mask & (torch.arange(n * n, device=dev).view(n, n) % 3 == 0))))
+    return cases
+
+
 def boards_of(states):
     """(mover, opp) contiguous bool planes of int8 states, by side to move."""
     wtm = states[:, 2, 0, 0].bool()[:, None, None]
@@ -73,16 +112,57 @@ def boards_of(states):
             torch.where(wtm, black, white).contiguous())
 
 
+def time_ms(fn, reps):
+    """Mean device ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_windows(rollout, gen, states, cfg, window, repeats):
+    """``repeats`` rollouts of ``window`` steps, each ending on a scalar
+    checksum fetch; returns (env-steps/s per window, the Rollouts, the start
+    states of each window)."""
+    rates, runs, starts = [], [], []
+    for _ in range(repeats):
+        starts.append(states)
+        t0 = time.perf_counter()
+        r = rollout(gen, states, window, cfg)
+        checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
+        dt = time.perf_counter() - t0
+        if not math.isfinite(checksum):
+            fail(f"checksum not finite: {checksum}")
+        rates.append(cfg.batch_size * window / dt)
+        runs.append(r)
+        states = r.final_states
+    return rates, runs, starts
+
+
+def rates_text(rates):
+    return (f"env-steps/s median {statistics.median(rates):.1f} min {min(rates):.1f} "
+            f"max {max(rates):.1f} (runs {', '.join(f'{x:.1f}' for x in rates)})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
 
     from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
-    from gymgo_tpu_torch.core.flood import bundle_flood_plain
+    from gymgo_tpu_torch.core import flood as tflood
+    from gymgo_tpu_torch.core.flood import bundle_flood_plain, minmax_flood_plain
     from gymgo_tpu_torch.core.state import batch_init_state
     from gymgo_tpu_torch.env.batch_env import rollout
     from gymgo_tpu_torch.ops import bundle_flood as bf
+    from gymgo_tpu_torch.ops import minmax_flood as mf
+
+    tflood.set_flood_route("bitpack")  # phases 3-7 run the default route
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -96,30 +176,20 @@ def main() -> int:
     ).stdout.strip()
     print(f"[1 device] torch: {kind} (count {count}); nvidia-smi: {smi}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
+    libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
     t0 = time.perf_counter()
-    bf.build()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        list(ex.map(lambda lib: lib.function(), libs))
     build_s = time.perf_counter() - t0
-    ptxas = " | ".join(l.strip() for l in bf.BUNDLE_FLOOD.build_log.splitlines() if "ptxas info" in l)
-    print(f"[2 build] bundle_flood.cu built and loaded in {build_s:.2f} s; {ptxas}", flush=True)
+    for lib in libs:
+        ptxas = " | ".join(l.strip() for l in lib.build_log.splitlines() if "ptxas info" in l)
+        print(f"[2 build] {lib.source.name} built and loaded in {lib.build_seconds:.2f} s "
+              f"(both: {build_s:.2f} s); {ptxas}", flush=True)
 
     # 3. kernel against its plain version, bit for bit
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    cases = []
-    for n in (5, 9, 19, 22):
-        r = torch.rand((1237, n, n), generator=gen, device=dev)
-        dens = torch.rand((1237, 1, 1), generator=gen, device=dev) * 0.9
-        a = r < dens / 2
-        b = (r >= dens / 2) & (r < dens)
-        cases.append((f"random N={n} B=1237", a.contiguous(), b.contiguous()))
-    for maker in (serpentine, staircase):
-        for n in (19, 22):
-            mask = maker(n).to(dev)
-            none = torch.zeros_like(mask)
-            stack = lambda *xs: torch.stack(xs).contiguous()
-            cases.append((f"{maker.__name__} N={n}",
-                          stack(mask, none, ~mask, mask),
-                          stack(none, mask, none, ~mask & (torch.arange(n * n, device=dev).view(n, n) % 3 == 0))))
+    cases = board_cases(dev, gen, (5, 9, 19, 22), (19, 22))
     cfg_small = EnvConfig(board_size=19, batch_size=1531, reward_method=HEURISTIC, auto_reset=True)
     r = rollout(gen, batch_init_state(1531, 19, device=dev), 300, cfg_small)
     cases.append(("steady 19x19 B=1531", *boards_of(r.final_states)))
@@ -140,7 +210,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     states = batch_init_state(B, N, device=dev)
     torch.cuda.synchronize()
-    bf.BUNDLE_FLOOD.launches = 0
+    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = 0
     t0 = time.perf_counter()
     r = rollout(gen, states, WARMUP, cfg)
     states = r.final_states
@@ -148,29 +218,21 @@ def main() -> int:
     n_games = r.dones.sum()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    rates = []
-    for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        r = rollout(gen, states, WINDOW, cfg)
-        checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
-        dt = time.perf_counter() - t0
-        rates.append(B * WINDOW / dt)
-        states = r.final_states
-        n_invalid = n_invalid + r.invalid.sum()
-        n_games = n_games + r.dones.sum()
-    launches = bf.BUNDLE_FLOOD.launches
+    rates, runs, _ = timed_windows(rollout, gen, states, cfg, WINDOW, REPEATS)
+    launches, minmax_on_default = bf.BUNDLE_FLOOD.launches, mf.MINMAX_FLOOD.launches
+    states = runs[-1].final_states
+    n_invalid = n_invalid + sum(x.invalid.sum() for x in runs)
+    n_games = n_games + sum(x.dones.sum() for x in runs)
     expected = (WARMUP + 1) + REPEATS * (WINDOW + 1)
     if launches != expected:
         fail(f"bundle flood launched {launches} times on the main path, expected {expected}")
+    if minmax_on_default != 0:
+        fail(f"minmax flood launched {minmax_on_default} times on the default route")
     if int(n_invalid) != 0:
         fail(f"{int(n_invalid)} steps flagged an invalid action on the main path")
-    if not math.isfinite(checksum):
-        fail(f"checksum not finite: {checksum}")
     stones = states[:, :2].to(torch.int32).sum().item() / B
-    med = statistics.median(rates)
     print(f"[4 main path] 19x19 B={B}: warmup {WARMUP} steps {warm_s:.2f} s; "
-          f"env-steps/s median {med:.1f} min {min(rates):.1f} max {max(rates):.1f} "
-          f"(runs {', '.join(f'{x:.1f}' for x in rates)}); games finished {int(n_games)}; "
+          f"{rates_text(rates)}; games finished {int(n_games)}; "
           f"mean stones/board {stones:.1f}; kernel launches {launches}", flush=True)
 
     # 5. card against CPU replay
@@ -189,18 +251,6 @@ def main() -> int:
 
     # 6. kernel time against the plain version's, on the steady-state boards
     a, b = boards_of(states)
-
-    def time_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     launches_before = bf.BUNDLE_FLOOD.launches
     kernel_ms = time_ms(lambda: bf.bundle_flood_cuda(a, b), 50)
     plain_ms = time_ms(lambda: bundle_flood_plain(a, b), 5)
@@ -239,6 +289,73 @@ def main() -> int:
         print(f"[7 profile] device time not visible to torch.profiler (not measured); "
               f"wall {wall_us / PROF_STEPS:.1f} us/step", flush=True)
 
+    # 8. minmax kernel against its plain version, bit for bit on every cell
+    gen8 = torch.Generator(device=dev).manual_seed(SEED + 8)
+    cases = board_cases(dev, gen8, (5, 9, 19, 22, 32), (19, 22, 32))
+    cases.append((f"steady 19x19 B={B}", a, b))
+    mm_err = 0
+    for name, ca, cb in cases:
+        kmn, kmx = mf.minmax_flood_cuda(ca, cb)
+        pmn, pmx = minmax_flood_plain(ca, cb)
+        torch.cuda.synchronize()
+        for k, p in ((kmn, pmn), (kmx, pmx)):
+            mm_err = max(mm_err, int((k.to(torch.int32) - p.to(torch.int32)).abs().max()))
+        if not (torch.equal(kmn, pmn) and torch.equal(kmx, pmx)):
+            fail(f"minmax kernel != plain on {name}: "
+                 f"{int(((kmn != pmn) | (kmx != pmx)).sum())} cells differ")
+    print(f"[8 minmax kernel vs plain] {len(cases)} cases bit-exact on every cell "
+          f"(max |diff| {mm_err})", flush=True)
+
+    # 9. the minmax route, from phase 4's steady-state states
+    tflood.set_flood_route("unrolled")
+    gen9 = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = 0
+    rates9, runs9, starts9 = timed_windows(rollout, gen9, states, cfg, WINDOW, REPEATS)
+    mm_launches, bundle_on_minmax = mf.MINMAX_FLOOD.launches, bf.BUNDLE_FLOOD.launches
+    if mm_launches != REPEATS * (WINDOW + 1):
+        fail(f"minmax flood launched {mm_launches} times on the minmax route, "
+             f"expected {REPEATS * (WINDOW + 1)}")
+    if bundle_on_minmax != 0:
+        fail(f"bundle flood launched {bundle_on_minmax} times on the minmax route")
+    if any(int(x.invalid.sum()) for x in runs9):
+        fail("a step flagged an invalid action on the minmax route")
+    print(f"[9 minmax route] 19x19 B={B}: {rates_text(rates9)}; games finished "
+          f"{int(sum(x.dones.sum() for x in runs9))}; minmax kernel launches {mm_launches}, "
+          f"bundle kernel launches {bundle_on_minmax}", flush=True)
+
+    # 10. route equivalence: card minmax route -> card bundle route, and -> CPU
+    tflood.set_flood_route("bitpack")
+    acts = iter(runs9[0].actions)
+    rb = rollout(gen9, starts9[0], WINDOW, cfg, policy_fn=lambda _g, _s: next(acts))
+    for field in ("final_states", "rewards", "dones"):
+        if not torch.equal(getattr(runs9[0], field), getattr(rb, field)):
+            fail(f"minmax and bundle routes disagree on {field}")
+    tflood.set_flood_route("unrolled")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    start = runs9[-1].final_states[:256].clone()
+    rc = rollout(g, start, 200, cfg_r)
+    acts = iter(rc.actions.cpu())
+    rh = rollout(torch.Generator().manual_seed(0), start.cpu(), 200,
+                 cfg_r, policy_fn=lambda _g, _s: next(acts))
+    for field in ("final_states", "rewards", "dones"):
+        if not torch.equal(getattr(rc, field).cpu(), getattr(rh, field)):
+            fail(f"minmax route: card and CPU replay disagree on {field}")
+    tflood.set_flood_route("bitpack")
+    print(f"[10 route equivalence] 19x19 B={B} {WINDOW} steps: minmax route == bundle route "
+          f"on final states, rewards, dones ({int(rb.dones.sum())} games finished); "
+          f"19x19 B=256 200 steps: minmax route on the card == CPU plain path "
+          f"({int(rc.dones.sum())} games finished)", flush=True)
+
+    # 11. minmax kernel time against the plain version's, on phase 4's boards
+    launches_before = mf.MINMAX_FLOOD.launches
+    mm_ms = time_ms(lambda: mf.minmax_flood_cuda(a, b), 50)
+    mm_plain_ms = time_ms(lambda: minmax_flood_plain(a, b), 5)
+    mm_ms_2 = time_ms(lambda: mf.minmax_flood_cuda(a, b), 50)
+    mf.MINMAX_FLOOD.launches = launches_before
+    print(f"[11 timing] minmax flood 19x19 B={B} steady state: kernel {mm_ms:.4f} ms "
+          f"(again {mm_ms_2:.4f}), plain {mm_plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "
+          f"({(2 + 4) * B * N * N} bytes at 3.35 TB/s)", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
         "route": "cuda",
@@ -248,6 +365,19 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "minmax_flood",
+        "route": "cuda",
+        "source": "gymgo_tpu_torch/csrc/minmax_flood.cu",
+        "replaces": "gymgo_tpu/ops/pallas_flood.py:33",
+        "launches": mm_launches,
+        "max_abs_err": mm_err,
+        "ms": min(mm_ms, mm_ms_2),
+        "plain_ms": mm_plain_ms,
+        # 2 bytes in (two uint8 planes), 4 out (two int16 planes) per cell
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,

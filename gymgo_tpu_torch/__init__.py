@@ -2,8 +2,10 @@
 an NVIDIA H100.
 
 The same 6-channel int8 state ``(B, 6, N, N)`` is stepped in lockstep for
-thousands of games; the bundle flood that classifies groups and claims areas
-every step is a hand CUDA kernel (``csrc/bundle_flood.cu``).  Entry points run
+thousands of games; the flood that classifies groups and claims areas every
+step runs hand CUDA kernels: the bundle flood (``csrc/bundle_flood.cu``) on the
+default route, the min/max liberty flood (``csrc/minmax_flood.cu``) on the
+minmax route (``GYMGO_FLOOD``, as in the JAX package).  Entry points run
 on ``cuda`` unless the caller passes another device, and raise when there is no
 card.  This package imports nothing of JAX or of ``gymgo_tpu``.
 """

@@ -8,28 +8,59 @@ labels are needed.
 Conventions: planes are ``(..., N, N)``; leading batch dimensions are untouched.
 Connectivity is 4-neighbour.
 
-Two floods live here:
+The floods, each with a plain PyTorch version that checks convergence on the
+host every few substeps:
 
-* ``flood_or``: a plain PyTorch loop that checks convergence on the host.  Only
-  the stateless capture path of ``step_states`` uses it.
+* ``flood_or``: an OR-flood through a mask; the stateless capture path of
+  ``step_states``, the scoring and the minmax route's claim flood use it.
 * the bundle flood: one packed int32 OR-flood per cell that yields the liberty
   classes, the Trump-Taylor claims and the atari encoding of every step.
-  ``bundle_flood_plain`` is its plain PyTorch version; on a CUDA tensor
+  ``bundle_flood_plain`` is its plain version; on a CUDA tensor
   ``flood_bundle`` runs the hand kernel of ``gymgo_tpu_torch.ops.bundle_flood``
-  instead, which converges each board on its own without a host sync.
+  instead.
+* the min/max liberty flood: per stone, the least and greatest flat index of
+  its group's liberties.  ``minmax_flood_plain`` is its plain version; on a
+  CUDA tensor ``liberty_classes_from_minmax`` runs the hand kernel of
+  ``gymgo_tpu_torch.ops.minmax_flood`` instead.
+
+Both kernels converge each board on its own without a host sync.
+
+Routes.  As in the JAX package, ``GYMGO_FLOOD`` (read at import; default
+``bitpack``) selects what ``flood_bundle_best`` and
+``liberty_classification_best`` are: ``bitpack``, ``gatepack`` and ``pallas``
+the bundle flood, every other value the minmax route
+(``flood_bundle_from_parts``: the min/max classification plus a separate
+two-bit claim flood).  ``set_flood_route`` re-binds them inside a process.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 __all__ = [
     "shift",
     "neighbor_or",
+    "neighbor_min",
+    "neighbor_max",
+    "neighbor_count_edge1",
     "flood_or",
+    "flood_or_unrolled",
+    "flood_min_max_two_colors",
+    "flood_min_max_two_colors_unrolled",
+    "minmax_flood_plain",
+    "liberty_classes_from_minmax",
+    "liberty_classes_bitpack",
     "bundle_flood_plain",
     "unpack_bundle",
     "flood_bundle",
+    "flood_bundle_from_parts",
+    "set_flood_route",
+    "flood_or_best",
+    "liberty_classification_best",
+    "flood_bundle_best",
+    "BUNDLE_ROUTES",
     "MAX_BUNDLE_CELLS",
 ]
 
@@ -66,6 +97,33 @@ def neighbor_or(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def neighbor_min(x: torch.Tensor, big) -> torch.Tensor:
+    """Min over the 4 in-bounds neighbours; out-of-bounds contributes ``big``."""
+    out = shift(x, 1, 0, big)
+    for dr, dc in _DIRS[1:]:
+        out = torch.minimum(out, shift(x, dr, dc, big))
+    return out
+
+
+def neighbor_max(x: torch.Tensor, small) -> torch.Tensor:
+    """Max over the 4 in-bounds neighbours; out-of-bounds contributes ``small``."""
+    out = shift(x, 1, 0, small)
+    for dr, dc in _DIRS[1:]:
+        out = torch.maximum(out, shift(x, dr, dc, small))
+    return out
+
+
+def neighbor_count_edge1(x: torch.Tensor) -> torch.Tensor:
+    """int8 count of set 4-neighbours, counting out-of-bounds as set (the
+    reference's edge-as-wall convolution): 4 means fully surrounded by stones
+    and/or board edges."""
+    x8 = x.to(torch.int8)
+    out = shift(x8, 1, 0, 1)
+    for dr, dc in _DIRS[1:]:
+        out += shift(x8, dr, dc, 1)
+    return out
+
+
 def flood_or(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """OR-propagate ``seed`` through 4-connected components of ``mask``.
 
@@ -86,6 +144,110 @@ def flood_or(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if torch.equal(nx, x):
             return x
         x = nx
+
+
+# JAX's flood_or_unrolled: the same fixpoint with fused substeps, which
+# flood_or already runs.
+flood_or_unrolled = flood_or
+
+
+def flood_min_max_two_colors(seed_min, seed_max, color_a, color_b, big: int):
+    """Propagate per-stone (min, max) values within same-colour components.
+
+    ``color_a``/``color_b`` are disjoint bool stone planes.  Propagation runs
+    only between 4-adjacent cells of the same colour; other cells keep their
+    seeds.  Seeded with the min/max flat index of each stone's adjacent empty
+    cells (``big`` / -1 when none), the fixpoint gives every stone the min/max
+    over its group's distinct liberties: ``mn == big`` no liberty, ``mn == mx``
+    exactly one, ``mn < mx`` two or more.  One colour after the other per
+    iteration, as in JAX; checks convergence on the host every iteration.
+    """
+
+    def one_color(mn, mx, color):
+        nmn = neighbor_min(torch.where(color, mn, big), big)
+        nmx = neighbor_max(torch.where(color, mx, -1), -1)
+        return (torch.where(color, torch.minimum(mn, nmn), mn),
+                torch.where(color, torch.maximum(mx, nmx), mx))
+
+    mn, mx = seed_min, seed_max
+    while True:
+        mn2, mx2 = one_color(mn, mx, color_a)
+        mn2, mx2 = one_color(mn2, mx2, color_b)
+        if torch.equal(mn2, mn) and torch.equal(mx2, mx):
+            return mn, mx
+        mn, mx = mn2, mx2
+
+
+def flood_min_max_two_colors_unrolled(seed_min, seed_max, color_a, color_b, big: int,
+                                      unroll: int = _UNROLL):
+    """Same fixpoint as ``flood_min_max_two_colors``, in int16 with the four
+    same-colour direction gates computed once, Gauss-Seidel within a substep
+    (later directions see earlier updates), and a host convergence check
+    every ``unroll`` substeps.  Returns the seeds' dtype."""
+    in_dtype = seed_min.dtype
+    mn = seed_min.to(torch.int16)
+    mx = seed_max.to(torch.int16)
+    same = [(color_a & shift(color_a, dr, dc, False)) | (color_b & shift(color_b, dr, dc, False))
+            for dr, dc in _DIRS]
+    while True:
+        nmn, nmx = mn, mx
+        for _ in range(unroll):
+            for (dr, dc), same_d in zip(_DIRS, same):
+                nmn = torch.minimum(nmn, torch.where(same_d, shift(nmn, dr, dc, big), big))
+                nmx = torch.maximum(nmx, torch.where(same_d, shift(nmx, dr, dc, -1), -1))
+        if torch.equal(nmn, mn) and torch.equal(nmx, mx):
+            return mn.to(in_dtype), mx.to(in_dtype)
+        mn, mx = nmn, nmx
+
+
+def _minmax_seeds(color_a: torch.Tensor, color_b: torch.Tensor, n: int):
+    """int32 (seed_min, seed_max): per cell, the min/max flat index of its
+    empty 4-neighbours, N*N / -1 when none."""
+    big = n * n
+    empty = ~(color_a | color_b)
+    cell_idx = torch.arange(big, dtype=torch.int32, device=color_a.device).view(n, n)
+    return (neighbor_min(torch.where(empty, cell_idx, big), big),
+            neighbor_max(torch.where(empty, cell_idx, -1), -1))
+
+
+def minmax_flood_plain(mover: torch.Tensor, opp: torch.Tensor):
+    """``(mn, mx)`` int16 ``(B, N, N)``; plain PyTorch version.
+
+    Same function as ``gymgo_tpu.ops.pallas_flood.minmax_liberty_flood_pallas``:
+    the seeds of ``liberty_classes_from_minmax`` flooded by
+    ``flood_min_max_two_colors_unrolled``.  Cells that are not stones keep
+    their seeds.  Checks convergence on the host, so it syncs with the device.
+    """
+    a, b = mover.bool(), opp.bool()
+    n = a.shape[-1]
+    seed_min, seed_max = _minmax_seeds(a, b, n)
+    return flood_min_max_two_colors_unrolled(
+        seed_min.to(torch.int16), seed_max.to(torch.int16), a, b, n * n)
+
+
+def liberty_classes_from_minmax(color_a: torch.Tensor, color_b: torch.Tensor,
+                                n: int | None = None, minmax_fn=None):
+    """(one_lib, multi_lib, atari_enc) from a (min, max) liberty flood.
+
+    ``minmax_fn(seed_min, seed_max, color_a, color_b, big)`` floods the seeds
+    built here, as in JAX.  Without it, ``ops.minmax_flood.minmax_flood``
+    builds the same seeds itself: the hand kernel on CUDA tensors,
+    ``minmax_flood_plain`` on CPU tensors.  ``atari_enc`` is int16: the sole
+    liberty's flat index + 1 on stones of one-liberty groups, else 0.
+    """
+    n = color_a.shape[-1] if n is None else n
+    big = n * n
+    if minmax_fn is None:
+        from gymgo_tpu_torch.ops.minmax_flood import minmax_flood
+
+        mn, mx = minmax_flood(color_a, color_b)
+    else:
+        mn, mx = minmax_fn(*_minmax_seeds(color_a, color_b, n), color_a, color_b, big)
+    stones = color_a | color_b
+    one_lib = stones & (mn < big) & (mn == mx)
+    multi_lib = stones & (mn < mx)
+    atari_enc = torch.where(one_lib, (mn + 1).to(torch.int16), 0)
+    return one_lib, multi_lib, atari_enc
 
 
 def _bundle_seed_and_gates(mover: torch.Tensor, opp: torch.Tensor):
@@ -177,3 +339,56 @@ def flood_bundle(color_a: torch.Tensor, color_b: torch.Tensor):
     from gymgo_tpu_torch.ops.bundle_flood import bundle_flood
 
     return unpack_bundle(bundle_flood(color_a, color_b), color_a, color_b)
+
+
+def liberty_classes_bitpack(color_a: torch.Tensor, color_b: torch.Tensor):
+    """(one_lib, multi_lib, atari_enc) from the bundle flood.
+
+    JAX's ``liberty_classes_bitpack`` floods only the stone fields of the
+    bundle word; stones never propagate to or from empty cells, so those
+    fields equal the bundle flood's, and its unpacked outputs 0, 1 and 4 are
+    these classes.
+    """
+    one_lib, multi_lib, _, _, atari_enc = flood_bundle(color_a, color_b)
+    return one_lib, multi_lib, atari_enc
+
+
+def flood_bundle_from_parts(color_a: torch.Tensor, color_b: torch.Tensor):
+    """The bundle flood's five outputs from the minmax route: the min/max
+    liberty classification (the hand kernel on CUDA tensors) plus a separate
+    two-bit claim flood of the empty regions, which checks its convergence on
+    the host."""
+    one_lib, multi_lib, atari_enc = liberty_classes_from_minmax(color_a, color_b)
+    empty = ~(color_a | color_b)
+    touch = (empty & neighbor_or(color_a)).to(torch.uint8)
+    touch |= (empty & neighbor_or(color_b)).to(torch.uint8) << 1
+    touch = flood_or_best(touch, empty)
+    return one_lib, multi_lib, empty & (touch == 1), empty & (touch == 2), atari_enc
+
+
+# Every GYMGO_FLOOD value of the JAX package floods claims with an OR-flood of
+# the same fixpoint; its bundle and minmax routes use flood_or_unrolled.
+flood_or_best = flood_or_unrolled
+# The GYMGO_FLOOD values that select the bundle flood; any other selects the
+# minmax route, as the JAX package's dispatch does.
+BUNDLE_ROUTES = ("bitpack", "gatepack", "pallas")
+flood_route = None
+
+
+def set_flood_route(name: str):
+    """Bind ``liberty_classification_best`` and ``flood_bundle_best`` for the
+    ``GYMGO_FLOOD`` value ``name``; returns the value bound before.
+
+    The step and ``init_atari`` look ``flood_bundle_best`` up at call time, so
+    this switches the route of every later call in the process.
+    """
+    global flood_route, liberty_classification_best, flood_bundle_best
+    previous = flood_route
+    bundle = name in BUNDLE_ROUTES
+    liberty_classification_best = liberty_classes_bitpack if bundle else liberty_classes_from_minmax
+    flood_bundle_best = flood_bundle if bundle else flood_bundle_from_parts
+    flood_route = name
+    return previous
+
+
+set_flood_route(os.environ.get("GYMGO_FLOOD", "bitpack"))

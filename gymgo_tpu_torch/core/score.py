@@ -3,7 +3,8 @@
 A two-bit OR-flood tells every cell of an empty region whether the region
 touches black and/or white; a region counts for a colour iff it touches only
 that colour.  The step computes the same areas from its bundle flood; these
-stand-alone functions use the plain ``flood_or``, which syncs with the host.
+stand-alone functions use ``flood_or_best`` (the plain ``flood_or`` on every
+route), which syncs with the host.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from gymgo_tpu_torch import govars
-from gymgo_tpu_torch.core.flood import flood_or, neighbor_or
+from gymgo_tpu_torch.core import flood as _flood
+from gymgo_tpu_torch.core.flood import neighbor_or
 
 __all__ = ["areas", "areas_planes", "winning"]
 
@@ -22,7 +24,7 @@ def areas_planes(black: torch.Tensor, white: torch.Tensor):
     empty = ~(black | white)
     touch = (empty & neighbor_or(black)).to(torch.uint8)
     touch |= (empty & neighbor_or(white)).to(torch.uint8) << 1
-    touch = flood_or(touch, empty)
+    touch = _flood.flood_or_best(touch, empty)
     black_area = (black | (empty & (touch == 1))).reshape(b, -1).sum(1, dtype=torch.int32)
     white_area = (white | (empty & (touch == 2))).reshape(b, -1).sum(1, dtype=torch.int32)
     return black_area, white_area

@@ -11,9 +11,11 @@ Algorithm (the same as the JAX package's, so results agree bit for bit):
 * Captures: with the carried ``atari`` plane, an opponent group dies iff its
   sole liberty is the point just played; without it, a plain OR-flood of
   "touches an empty cell" through the opponent's stones.
-* One bundle flood of the post-capture board classifies every group by its
-  number of distinct liberties (0 / 1 / >= 2), claims empty regions for
-  Trump-Taylor areas and yields the next step's ``atari`` plane.
+* One flood of the post-capture board, by the route ``core.flood`` selects
+  (``flood_bundle_best``: the bundle flood by default, else the minmax
+  route), classifies every group by its number of distinct liberties
+  (0 / 1 / >= 2), claims empty regions for Trump-Taylor areas and yields the
+  next step's ``atari`` plane.
 * One packed uint8 dilation turns the classes into the next player's invalid
   mask (suicide rule) and the next step's ko-surround map.
 """
@@ -25,7 +27,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from gymgo_tpu_torch import govars
-from gymgo_tpu_torch.core.flood import flood_bundle, flood_or, neighbor_or, shift
+from gymgo_tpu_torch.core import flood as _flood
+from gymgo_tpu_torch.core.flood import flood_or, neighbor_or, shift
 
 __all__ = [
     "StepInfo",
@@ -118,9 +121,9 @@ def init_ko_surr(ps: PlanesState) -> torch.Tensor:
 
 
 def init_atari(ps: PlanesState) -> torch.Tensor:
-    """Seed the carried atari encoding for an arbitrary board (one bundle
-    flood; every later ``step_planes`` refreshes it for free)."""
-    return flood_bundle(ps.black, ps.white)[4]
+    """Seed the carried atari encoding for an arbitrary board (one flood of
+    the selected route; every later ``step_planes`` refreshes it for free)."""
+    return _flood.flood_bundle_best(ps.black, ps.white)[4]
 
 
 def invalid_action_flags(states: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
@@ -204,7 +207,7 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     ko_flat = kill_sum & ((1 << 18) - 1)
     ko_active = (num_captured == 1) & surrounded_pre
 
-    one_lib, multi_lib, only_mover, only_opp, atari_enc = flood_bundle(
+    one_lib, multi_lib, only_mover, only_opp, atari_enc = _flood.flood_bundle_best(
         mover.contiguous(), opp.contiguous()
     )
 

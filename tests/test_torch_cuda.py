@@ -1,5 +1,5 @@
-"""The bundle-flood kernel on a CUDA card: against its plain version, on the
-rollout, and on bad input.  Imports no JAX, so it runs on a machine without
+"""The flood kernels on a CUDA card: each against its plain version, on the
+rollout of its route, and on bad input.  Imports no JAX, so it runs on a machine without
 it (``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``); every
 test skips where there is no card.
 """
@@ -9,10 +9,12 @@ import pytest
 import torch
 
 from gymgo_tpu_torch.config import EnvConfig
-from gymgo_tpu_torch.core.flood import bundle_flood_plain
+from gymgo_tpu_torch.core import flood as tflood
+from gymgo_tpu_torch.core.flood import bundle_flood_plain, minmax_flood_plain
 from gymgo_tpu_torch.core.state import batch_init_state
 from gymgo_tpu_torch.env.batch_env import rollout
 from gymgo_tpu_torch.ops import bundle_flood as tbundle
+from gymgo_tpu_torch.ops import minmax_flood as tminmax
 from torch_boards import adversarial_boards, random_boards
 
 pytestmark = pytest.mark.cuda
@@ -64,3 +66,51 @@ def test_kernel_rejects_bad_input(cuda_device):
         tbundle.bundle_flood_cuda(big, big)
     with pytest.raises(ValueError, match="CUDA"):
         tbundle.bundle_flood_cuda(ok, ok.cpu())
+
+
+@pytest.mark.parametrize("n", [5, 9, 19, 22, 32])
+def test_minmax_kernel_matches_plain(n, cuda_device):
+    a, b = random_boards(np.random.default_rng(5), 333, n)
+    aa, ab = adversarial_boards(n)
+    a = torch.from_numpy(np.concatenate([a, aa])).to(cuda_device)
+    b = torch.from_numpy(np.concatenate([b, ab])).to(cuda_device)
+    launches = tminmax.MINMAX_FLOOD.launches
+    mn, mx = tminmax.minmax_flood_cuda(a, b)
+    assert tminmax.MINMAX_FLOOD.launches == launches + 1
+    # bit for bit on every cell: int16 (mn, mx), stones and kept seeds alike
+    pmn, pmx = minmax_flood_plain(a.cpu(), b.cpu())
+    assert torch.equal(mn.cpu(), pmn) and torch.equal(mx.cpu(), pmx)
+    wmn, wmx = tminmax.minmax_flood(a.to(torch.uint8), b.to(torch.uint8))
+    assert torch.equal(wmn, mn) and torch.equal(wmx, mx)
+
+
+def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_device):
+    cfg = EnvConfig(board_size=9, batch_size=96, reward_method="heuristic", auto_reset=True)
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        minmax, bundle = tminmax.MINMAX_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches
+        r = rollout(g, batch_init_state(96, 9, device=cuda_device), 150, cfg)
+        assert tminmax.MINMAX_FLOOD.launches == minmax + 151  # one per step + the seed
+        assert tbundle.BUNDLE_FLOOD.launches == bundle
+        assert r.dones.any() and not r.invalid.any()
+        acts = iter(r.actions.cpu())
+        rc = rollout(torch.Generator(), batch_init_state(96, 9, device="cpu"), 150, cfg,
+                     policy_fn=lambda _g, _s: next(acts))
+    finally:
+        tflood.set_flood_route(previous)
+    for field in ("final_states", "rewards", "dones"):
+        assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
+
+
+def test_minmax_kernel_rejects_bad_input(cuda_device):
+    ok = torch.zeros((2, 9, 9), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        tminmax.minmax_flood_cuda(ok.int(), ok.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        tminmax.minmax_flood_cuda(ok.transpose(1, 2), ok.transpose(1, 2))
+    with pytest.raises(ValueError, match="1024"):
+        big = torch.zeros((1, 33, 33), dtype=torch.bool, device=cuda_device)
+        tminmax.minmax_flood_cuda(big, big)
+    with pytest.raises(ValueError, match="CUDA"):
+        tminmax.minmax_flood_cuda(ok, ok.cpu())

@@ -39,15 +39,19 @@ def test_port_imports_no_jax_and_nothing_of_gymgo_tpu():
 def test_every_module_is_found():
     names = {m.name for m in pkgutil.walk_packages(gymgo_tpu_torch.__path__, "gymgo_tpu_torch.")}
     for name in ("core.flood", "core.step", "core.actions", "core.score", "core.state",
-                 "ops.bundle_flood", "env.batch_env", "convert", "govars", "config"):
+                 "ops.bundle_flood", "ops.minmax_flood", "ops.cuda_lib", "env.batch_env",
+                 "convert", "govars", "config"):
         assert f"gymgo_tpu_torch.{name}" in names
 
 
 def test_kernel_source_ships_with_the_package():
-    from gymgo_tpu_torch.ops import bundle_flood
+    from gymgo_tpu_torch.ops import bundle_flood, cuda_lib, minmax_flood
 
     assert bundle_flood.SOURCE.is_file()
-    assert "sm_90a" in " ".join(bundle_flood.NVCC_FLAGS)
+    assert minmax_flood.SOURCE.is_file()
+    assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
+    # each kernel keeps its own launch count
+    assert bundle_flood.BUNDLE_FLOOD is not minmax_flood.MINMAX_FLOOD
 
 
 @pytest.fixture
