@@ -10,8 +10,10 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
   2. build: nvcc builds both flood kernels from ``gymgo_tpu_torch/csrc``, in
      parallel, and prints each one's ptxas line;
   3. kernel vs plain: the bundle kernel's int32 word equals the plain PyTorch
-     version's bit for bit, on random boards at N = 5, 9, 19, 22, on serpentine
-     and staircase boards, and on steady-state 19x19 boards from a rollout;
+     version's bit for bit, on random boards at N = 5, 9, 19, 22, on serpentine,
+     staircase, spiral, comb, one-colour, empty and checkerboard boards, on
+     B = 1, B = 17 and a slice whose address is no multiple of 16 at N = 19,
+     and on steady-state 19x19 boards from a rollout;
   4. main path: ``rollout`` at 19x19, B = 12288, heuristic reward, auto-reset,
      uniform sampler: a 768-step warmup, then 5 timed windows of 64 steps, each
      ending on a scalar checksum fetch; the kernel's launch count must grow by
@@ -20,13 +22,15 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
   5. replay: a 19x19, B = 256, 200-step rollout on the card, from steady-state
      boards of phase 4, is replayed with its actions on the CPU plain path;
      states, rewards and dones must agree;
-  6. timing: the kernel against the plain version at B = 12288 on the
-     steady-state boards of phase 4, with CUDA events, beside the byte bound;
+  6. timing: the kernel (200 launches, twice) against the plain version at
+     B = 12288 on the steady-state boards of phase 4, with CUDA events, beside
+     the byte bound;
   7. profile: torch.profiler over 16 main-path steps: device time by kernel
      and the device's busy share of the wall time;
   8. minmax kernel vs plain: its int16 (mn, mx) equal the plain version's on
-     every cell, on random boards at N = 5, 9, 19, 22, 32, on serpentine and
-     staircase boards, and on the steady-state boards of phase 4;
+     every cell, on random boards at N = 5, 9, 19, 22, 32, on the shaped
+     boards and odd batches of phase 3, and on the steady-state boards of
+     phase 4;
   9. minmax route: ``rollout`` as in phase 4, from phase 4's final states, 5
      timed windows of 64 steps; the minmax kernel's launch count must grow by
      exactly one per step plus one per rollout call, the bundle kernel's not
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -83,9 +88,51 @@ def staircase(n):
     return m
 
 
+def spiral(n):
+    """A rectangular spiral one cell wide with one cell between its turns:
+    the longest path a board holds.  Its complement is a spiral too."""
+    m = torch.zeros((n, n), dtype=torch.bool)
+    steps = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    r = c = d = turns = 0
+    m[0, 0] = True
+    inside = lambda x, y: 0 <= x < n and 0 <= y < n
+    while turns < 2:
+        dr, dc = steps[d]
+        nr, nc = r + dr, c + dc
+        if (inside(nr, nc) and not m[nr, nc]
+                and not (inside(nr + dr, nc + dc) and m[nr + dr, nc + dc])):
+            r, c, turns = nr, nc, 0
+            m[r, c] = True
+        else:
+            d, turns = (d + 1) % 4, turns + 1
+    return m
+
+
+def comb(n):
+    """One full row with a tooth hanging from every other column."""
+    m = torch.zeros((n, n), dtype=torch.bool)
+    m[0, :] = True
+    m[:, 0::2] = True
+    return m
+
+
+def component_case(dev, n):
+    """Boards that try a component labelling: spirals of stones and of empty
+    cells, combs, one component of N*N cells, N*N components of one."""
+    sp, cb = spiral(n), comb(n)
+    none, full = torch.zeros_like(sp), torch.ones_like(sp)
+    idx = torch.arange(n)
+    checks = (idx[:, None] + idx[None, :]) % 2 == 0
+    a = torch.stack([sp, none, ~sp, sp, cb, none, ~cb, none, full, none, checks, checks, none])
+    b = torch.stack([none, sp, none, ~sp, none, cb, cb, none, none, full, ~checks, none, ~checks])
+    return (f"components N={n}", a.to(dev).contiguous(), b.to(dev).contiguous())
+
+
 def board_cases(dev, gen, sizes, shaped_sizes):
-    """(name, mover, opp) cases: 1237 random boards at each of ``sizes``, and
-    serpentine and staircase boards at each of ``shaped_sizes``."""
+    """(name, mover, opp) cases: 1237 random boards at each of ``sizes``;
+    serpentine, staircase and component boards at each of ``shaped_sizes``;
+    and, at N = 19, one board, 17 boards and a contiguous slice whose address
+    is no multiple of 16."""
     cases = []
     for n in sizes:
         r = torch.rand((1237, n, n), generator=gen, device=dev)
@@ -101,6 +148,12 @@ def board_cases(dev, gen, sizes, shaped_sizes):
             cases.append((f"{maker.__name__} N={n}",
                           stack(mask, none, ~mask, mask),
                           stack(none, mask, none, ~mask & (torch.arange(n * n, device=dev).view(n, n) % 3 == 0))))
+    cases += [component_case(dev, n) for n in shaped_sizes]
+    _, a, b = next(c for c in cases if c[0].startswith("random N=19"))
+    if a[3:].data_ptr() % 16 == 0:
+        fail("the sliced planes are aligned; the case would not try a misaligned address")
+    cases += [("random N=19 B=1", a[:1], b[:1]), ("random N=19 B=17", a[:17], b[:17]),
+              ("random N=19 B=1234 misaligned", a[3:], b[3:])]
     return cases
 
 
@@ -113,8 +166,11 @@ def boards_of(states):
 
 
 def time_ms(fn, reps):
-    """Mean device ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
-    fn()
+    """Mean device ms per call of ``fn`` over ``reps`` calls, by CUDA events,
+    after ``reps // 4`` calls (one at least) to warm up: the card's clocks fall
+    while it waits for a phase that runs on the CPU."""
+    for _ in range(max(1, reps // 4)):
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -183,7 +239,10 @@ def main() -> int:
         list(ex.map(lambda lib: lib.function(), libs))
     build_s = time.perf_counter() - t0
     for lib in libs:
-        ptxas = " | ".join(l.strip() for l in lib.build_log.splitlines() if "ptxas info" in l)
+        ptxas = " | ".join(l.split(":", 1)[-1].strip() for l in lib.build_log.splitlines()
+                           if "spill" in l or ("ptxas info" in l and "Used" in l))
+        if re.search(r"[1-9][0-9]* bytes spill", ptxas):
+            fail(f"{lib.source.name} spills registers: {ptxas}")
         print(f"[2 build] {lib.source.name} built and loaded in {lib.build_seconds:.2f} s "
               f"(both: {build_s:.2f} s); {ptxas}", flush=True)
 
@@ -252,9 +311,9 @@ def main() -> int:
     # 6. kernel time against the plain version's, on the steady-state boards
     a, b = boards_of(states)
     launches_before = bf.BUNDLE_FLOOD.launches
-    kernel_ms = time_ms(lambda: bf.bundle_flood_cuda(a, b), 50)
+    kernel_ms = time_ms(lambda: bf.bundle_flood_cuda(a, b), 200)
     plain_ms = time_ms(lambda: bundle_flood_plain(a, b), 5)
-    kernel_ms_2 = time_ms(lambda: bf.bundle_flood_cuda(a, b), 50)
+    kernel_ms_2 = time_ms(lambda: bf.bundle_flood_cuda(a, b), 200)
     bf.BUNDLE_FLOOD.launches = launches_before
     if not torch.equal(bf.bundle_flood_cuda(a, b), bundle_flood_plain(a, b)):
         fail("kernel != plain on the main path's steady-state boards")
@@ -348,9 +407,9 @@ def main() -> int:
 
     # 11. minmax kernel time against the plain version's, on phase 4's boards
     launches_before = mf.MINMAX_FLOOD.launches
-    mm_ms = time_ms(lambda: mf.minmax_flood_cuda(a, b), 50)
+    mm_ms = time_ms(lambda: mf.minmax_flood_cuda(a, b), 200)
     mm_plain_ms = time_ms(lambda: minmax_flood_plain(a, b), 5)
-    mm_ms_2 = time_ms(lambda: mf.minmax_flood_cuda(a, b), 50)
+    mm_ms_2 = time_ms(lambda: mf.minmax_flood_cuda(a, b), 200)
     mf.MINMAX_FLOOD.launches = launches_before
     print(f"[11 timing] minmax flood 19x19 B={B} steady state: kernel {mm_ms:.4f} ms "
           f"(again {mm_ms_2:.4f}), plain {mm_plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "

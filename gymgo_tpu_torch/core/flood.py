@@ -49,9 +49,11 @@ __all__ = [
     "flood_or_unrolled",
     "flood_min_max_two_colors",
     "flood_min_max_two_colors_unrolled",
+    "minmax_seeds",
     "minmax_flood_plain",
     "liberty_classes_from_minmax",
     "liberty_classes_bitpack",
+    "bundle_seed_and_gates",
     "bundle_flood_plain",
     "unpack_bundle",
     "flood_bundle",
@@ -200,7 +202,7 @@ def flood_min_max_two_colors_unrolled(seed_min, seed_max, color_a, color_b, big:
         mn, mx = nmn, nmx
 
 
-def _minmax_seeds(color_a: torch.Tensor, color_b: torch.Tensor, n: int):
+def minmax_seeds(color_a: torch.Tensor, color_b: torch.Tensor, n: int):
     """int32 (seed_min, seed_max): per cell, the min/max flat index of its
     empty 4-neighbours, N*N / -1 when none."""
     big = n * n
@@ -220,7 +222,7 @@ def minmax_flood_plain(mover: torch.Tensor, opp: torch.Tensor):
     """
     a, b = mover.bool(), opp.bool()
     n = a.shape[-1]
-    seed_min, seed_max = _minmax_seeds(a, b, n)
+    seed_min, seed_max = minmax_seeds(a, b, n)
     return flood_min_max_two_colors_unrolled(
         seed_min.to(torch.int16), seed_max.to(torch.int16), a, b, n * n)
 
@@ -242,7 +244,7 @@ def liberty_classes_from_minmax(color_a: torch.Tensor, color_b: torch.Tensor,
 
         mn, mx = minmax_flood(color_a, color_b)
     else:
-        mn, mx = minmax_fn(*_minmax_seeds(color_a, color_b, n), color_a, color_b, big)
+        mn, mx = minmax_fn(*minmax_seeds(color_a, color_b, n), color_a, color_b, big)
     stones = color_a | color_b
     one_lib = stones & (mn < big) & (mn == mx)
     multi_lib = stones & (mn < mx)
@@ -250,7 +252,7 @@ def liberty_classes_from_minmax(color_a: torch.Tensor, color_b: torch.Tensor,
     return one_lib, multi_lib, atari_enc
 
 
-def _bundle_seed_and_gates(mover: torch.Tensor, opp: torch.Tensor):
+def bundle_seed_and_gates(mover: torch.Tensor, opp: torch.Tensor):
     """The bundle flood's seed word and its four same-class direction gates."""
     n = mover.shape[-1]
     a = mover.bool()
@@ -296,7 +298,7 @@ def bundle_flood_plain(mover: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"bundle flood needs N*N <= {MAX_BUNDLE_CELLS}, got {tuple(mover.shape)}"
         )
-    x, gates = _bundle_seed_and_gates(mover, opp)
+    x, gates = bundle_seed_and_gates(mover, opp)
     while True:
         nx = x
         for _ in range(_UNROLL):

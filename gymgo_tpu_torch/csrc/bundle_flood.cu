@@ -14,120 +14,76 @@
 // flooded within same-class 4-connected runs (mover-mover, opp-opp,
 // empty-empty) to the fixpoint.  The 9-bit code field limits N*N to 511.
 //
-// What bounds it.  The work is data dependent: the number of propagation
-// rounds is set by the longest path inside a group or empty region, and
-// differs from board to board.  The TPU kernel ran a whole tile of boards to
-// the tile's slowest fixpoint; a batch-wide loop would pay the batch's
-// slowest board on every board.  Device-memory traffic is small (2 bytes in,
-// 4 bytes out per cell), so the floor is the byte bound, and what a simple
-// kernel actually pays is latency: shared-memory reads and one block-wide
-// barrier per round.
+// What bounds it.  Device-memory traffic is small (2 bytes in, 4 bytes out per
+// cell), so the floor is the byte bound, and the kernel's loads and stores
+// alone run near it.  What it pays above that is the labelling, which the byte
+// bound does not count: integer and shared-memory instructions, a few
+// thousand per board, on a multiprocessor that issues two integer and one
+// shared-memory warp instruction a clock.  The dearest are the pointer chases
+// of the union-find, in which the lanes of a warp run different numbers of
+// steps and each step waits for the load before it.
 //
-// Design.  One thread block per board, one thread per cell (N*N rounded up to
-// whole warps: 12 warps at 19x19).  Each thread computes its seed word and its
-// four same-class direction gates once, in registers, from the class bytes of
-// its neighbours in shared memory.  The words live in shared memory; each
-// round a thread ORs in its gated neighbours' words, writes its own word back
-// if it grew, and the block votes with __syncthreads_or.  A block stops after
-// the first round in which no thread changed: each board pays its own round
-// count, and nothing goes to the host.  Reads inside a round may see a
-// neighbour's word from before or after that round's write; the operator is
-// monotone and its fixpoint unique, so either is right, and a round with no
-// change saw only final words, so stopping there is exact.
+// Design (board_components.cuh has the whole of it).  The fixpoint of a cell
+// is the OR of the seeds of its connected component, so the kernel labels
+// components instead of flooding by rounds: one warp a board, a fixed five
+// warp barriers a board and no block-wide one, whatever the length of the
+// board's groups.  Horizontal runs cost warp votes and no memory traffic; the
+// vertical pairs left to unite go through a dense list, 32 at a time.  Blocks
+// of 16 warps stride over the boards, three blocks resident on a
+// multiprocessor, so one board's loads overlap 47 others' labelling; staging
+// tiles of boards by bulk asynchronous copies measured no faster and is not
+// here.  This file holds what is the bundle flood's own: the three classes,
+// the seed word and the OR.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "board_components.cuh"
 
 namespace {
 
-constexpr int kMaxCells = 512;  // N*N <= 511, padded to whole warps
+using namespace board_components;
+
+constexpr int kMaxCells = 511;  // the 9-bit code field
 constexpr int kMask9 = (1 << 9) - 1;
 constexpr int kBitA = 1 << 18;
 constexpr int kBitB = 1 << 19;
-// class bits of a cell: mover, opp, empty
-constexpr uint8_t kClsA = 1, kClsB = 2, kClsE = 4;
 
-__global__ void bundle_flood_kernel(const uint8_t* __restrict__ mover,
-                                    const uint8_t* __restrict__ opp,
-                                    int32_t* __restrict__ out, int n) {
-  __shared__ uint8_t cls[kMaxCells];
-  __shared__ int32_t word[kMaxCells];
+struct BundleOp {
+  using Out = int32_t*;
+  static constexpr int kWords = 1;
 
-  const int m = n * n;
-  const int i = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * m;
-  const bool cell = i < m;
-
-  uint8_t c = 0;
-  if (cell) {
-    const bool a = mover[base + i] != 0;
-    const bool b = opp[base + i] != 0;
-    c = (a ? kClsA : 0) | (b ? kClsB : 0) | ((a || b) ? 0 : kClsE);
-    cls[i] = c;
+  static __device__ __forceinline__ uint8_t cell_class(bool a, bool b) {
+    return (a ? kClsA : 0) | (b ? kClsB : 0) | ((a || b) ? 0 : kClsE);
   }
-  __syncthreads();
 
-  // Neighbours in the JAX flood's order: from above, below, left, right.
-  int nbr[4];
-  bool gate[4] = {false, false, false, false};
-  int32_t w = 0;
-  if (cell) {
-    const int r = i / n, col = i - r * n;
-    nbr[0] = r > 0 ? i - n : -1;
-    nbr[1] = r < n - 1 ? i + n : -1;
-    nbr[2] = col > 0 ? i - 1 : -1;
-    nbr[3] = col < n - 1 ? i + 1 : -1;
-    int32_t lib = 0;
+  // A stone's seed: the codes of its empty neighbours, each beside its 9-bit
+  // complement; an empty cell's: which colours it touches.
+  static __device__ __forceinline__ void seed(uint8_t c, const uint8_t (&nc)[4], const int (&nbr)[4],
+                                              int /*m*/, int (&word)[1]) {
+    int lib = 0;
     uint8_t touch = 0;
-    for (int d = 0; d < 4; ++d) {
-      if (nbr[d] < 0) continue;
-      const uint8_t nc = cls[nbr[d]];
-      gate[d] = (c & nc) != 0;
-      touch |= nc;
-      if (nc & kClsE) {
-        const int32_t code = nbr[d] + 1;
-        lib |= code | ((~code & kMask9) << 9);
-      }
-    }
-    if (c & kClsE) {
-      w = ((touch & kClsA) ? kBitA : 0) | ((touch & kClsB) ? kBitB : 0);
-    } else {
-      w = lib;
-    }
-    word[i] = w;
-  }
-  __syncthreads();
-
-  bool changed = true;
-  while (__syncthreads_or(changed)) {
-    changed = false;
-    if (cell) {
-      int32_t x = w;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        if (gate[d]) x |= word[nbr[d]];
-      }
-      if (x != w) {
-        w = x;
-        word[i] = x;
-        changed = true;
-      }
+    for (int d = 0; d < 4; ++d) {
+      touch |= nc[d];
+      // code | (~code & kMask9) << 9 with code = nbr + 1, in one multiply-add:
+      // the fields do not overlap and the complement is kMask9 - code
+      if (nc[d] & kClsE) lib |= (kMask9 << 9) - ((1 << 9) - 1) * (nbr[d] + 1);
     }
+    word[0] = (c & kClsE) ? ((touch & kClsA) ? kBitA : 0) | ((touch & kClsB) ? kBitB : 0) : lib;
   }
-  if (cell) out[base + i] = w;
-}
+
+  static __device__ __forceinline__ void reduce(int /*w*/, int* at, int word, int /*m*/) {
+    if (word != 0) atomicOr(at, word);
+  }
+
+  static __device__ __forceinline__ void store(Out out, size_t i, const int (&word)[1]) {
+    out[i] = word[0];
+  }
+};
 
 }  // namespace
 
-extern "C" int bundle_flood_launch(const void* mover, const void* opp,
-                                   void* out, int batch, int n,
+extern "C" int bundle_flood_launch(const void* mover, const void* opp, void* out, int batch, int n,
                                    void* stream) {
-  const int m = n * n;
-  if (batch <= 0) return static_cast<int>(cudaSuccess);
-  if (n < 1 || m > kMaxCells - 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (m + 31) / 32 * 32;
-  bundle_flood_kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mover), static_cast<const uint8_t*>(opp),
-      static_cast<int32_t*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 1 || n * n > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_components<BundleOp>(mover, opp, static_cast<int32_t*>(out), batch,
+                                                      n, static_cast<cudaStream_t>(stream)));
 }

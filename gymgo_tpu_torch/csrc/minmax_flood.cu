@@ -15,114 +15,78 @@
 // mn == mx < BIG, two or more iff mn < mx (gymgo_tpu_torch.core.flood:
 // liberty_classes_from_minmax).
 //
-// What bounds it.  As for the bundle flood (csrc/bundle_flood.cu): the round
-// count is set by the longest path inside a group and differs from board to
-// board; device-memory traffic is small (2 bytes in, 4 bytes out per cell),
-// so the floor is the byte bound, and what a simple kernel pays is latency:
-// shared-memory reads and one block-wide barrier per round.
+// What bounds it.  As for the bundle flood (csrc/bundle_flood.cu): 2 bytes in
+// and 4 bytes out per cell make the byte bound the floor, and what the kernel
+// pays above it is the labelling's integer and shared-memory instructions,
+// here with two seed words, two atomics (a min and a max) per stone into its
+// group's root, and two 2-byte stores per cell.
 //
-// Design.  One thread block per board, one thread per cell (N*N rounded up to
-// whole warps), so N*N <= 1024.  Each thread computes its seeds and its four
-// same-colour direction gates once, in registers, from the class bytes of its
-// neighbours in shared memory; unlike the bundle flood, empty cells never
-// propagate.  The pair lives in shared memory as one word,
-// (BIG - mx) << 16 | mn: both fields are at most N*N + 1 < 2^16, and BIG - mx
-// falls as mx grows, so a per-halfword unsigned min (__vminu2) is the min of
-// mn and the max of mx at once, as the TPU kernel's packing is
-// (pallas_flood.py:81-94).  Each round a thread takes that min with its gated
-// neighbours' words, writes its own back if it fell, and the block votes with
-// __syncthreads_or; a block stops after the first round in which no thread
-// changed, so each board pays its own round count and nothing goes to the
-// host.  Reads inside a round may see a neighbour's word from before or after
-// that round's write; the operator is monotone with a unique fixpoint, so
-// either is right, and a round with no change saw only final words.
+// Design (board_components.cuh has the whole of it).  The fixpoint of a stone
+// is the min and the max of the seeds over its group, so the kernel labels
+// groups instead of flooding by rounds: one warp a board (32 cells a lane at
+// N = 32, the largest board it takes), five warp barriers a board, blocks of
+// 16 warps striding over the boards.  This file holds what is the
+// min/max flood's own: two classes (a cell that is no stone has none, so it
+// is a component of one and keeps its seeds), the two seed words, and the
+// two reductions.  The TPU kernel packs (mn, BIG - mx) into one word for its
+// lane rotations; here the two lie in arrays of their own, because an atomic
+// min on a packed word is not a min of its halves.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "board_components.cuh"
 
 namespace {
 
-constexpr int kMaxCells = 1024;  // one thread per cell, one block per board
-// class bits of a cell: mover, opp (a cell with neither is empty)
-constexpr uint8_t kClsA = 1, kClsB = 2;
+using namespace board_components;
 
-__global__ void minmax_flood_kernel(const uint8_t* __restrict__ mover,
-                                    const uint8_t* __restrict__ opp,
-                                    int16_t* __restrict__ mn_out,
-                                    int16_t* __restrict__ mx_out, int n) {
-  __shared__ uint8_t cls[kMaxCells];
-  __shared__ uint32_t word[kMaxCells];
+constexpr int kMaxCells = 1024;  // 32 cells a lane
 
-  const int m = n * n;
-  const int i = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * m;
-  const bool cell = i < m;
+struct MinmaxOp {
+  struct Out {
+    int16_t* mn;
+    int16_t* mx;
+  };
+  static constexpr int kWords = 2;
 
-  uint8_t c = 0;
-  if (cell) {
-    c = (mover[base + i] != 0 ? kClsA : 0) | (opp[base + i] != 0 ? kClsB : 0);
-    cls[i] = c;
+  static __device__ __forceinline__ uint8_t cell_class(bool a, bool b) {
+    return (a ? kClsA : 0) | (b ? kClsB : 0);
   }
-  __syncthreads();
 
-  // Neighbours in the JAX flood's order: from above, below, left, right.
-  int nbr[4];
-  bool gate[4] = {false, false, false, false};
-  uint32_t w = 0;
-  if (cell) {
-    const int r = i / n, col = i - r * n;
-    nbr[0] = r > 0 ? i - n : -1;
-    nbr[1] = r < n - 1 ? i + n : -1;
-    nbr[2] = col > 0 ? i - 1 : -1;
-    nbr[3] = col < n - 1 ? i + 1 : -1;
+  // The least and the greatest index of the cell's empty neighbours (the
+  // border has a class, so a cell of class 0 is an empty cell of the board).
+  static __device__ __forceinline__ void seed(uint8_t /*c*/, const uint8_t (&nc)[4],
+                                              const int (&nbr)[4], int m, int (&word)[2]) {
     int lo = m, hi = -1;
+#pragma unroll
     for (int d = 0; d < 4; ++d) {
-      if (nbr[d] < 0) continue;
-      const uint8_t nc = cls[nbr[d]];
-      gate[d] = (c & nc) != 0;
-      if (nc == 0) {
+      if (nc[d] == 0) {
         lo = min(lo, nbr[d]);
         hi = max(hi, nbr[d]);
       }
     }
-    w = (static_cast<uint32_t>(m - hi) << 16) | static_cast<uint32_t>(lo);
-    word[i] = w;
+    word[0] = lo;
+    word[1] = hi;
   }
-  __syncthreads();
 
-  bool changed = true;
-  while (__syncthreads_or(changed)) {
-    changed = false;
-    if (cell) {
-      uint32_t x = w;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        if (gate[d]) x = __vminu2(x, word[nbr[d]]);
-      }
-      if (x != w) {
-        w = x;
-        word[i] = x;
-        changed = true;
-      }
+  static __device__ __forceinline__ void reduce(int w, int* at, int word, int m) {
+    if (w == 0) {
+      if (word < m) atomicMin(at, word);
+    } else {
+      if (word >= 0) atomicMax(at, word);
     }
   }
-  if (cell) {
-    mn_out[base + i] = static_cast<int16_t>(w & 0xFFFFu);
-    mx_out[base + i] = static_cast<int16_t>(m - static_cast<int>(w >> 16));
+
+  static __device__ __forceinline__ void store(Out out, size_t i, const int (&word)[2]) {
+    out.mn[i] = static_cast<int16_t>(word[0]);
+    out.mx[i] = static_cast<int16_t>(word[1]);
   }
-}
+};
 
 }  // namespace
 
-extern "C" int minmax_flood_launch(const void* mover, const void* opp,
-                                   void* mn, void* mx, int batch, int n,
-                                   void* stream) {
-  const int m = n * n;
-  if (batch <= 0) return static_cast<int>(cudaSuccess);
-  if (n < 1 || m > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (m + 31) / 32 * 32;
-  minmax_flood_kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mover), static_cast<const uint8_t*>(opp),
-      static_cast<int16_t*>(mn), static_cast<int16_t*>(mx), n);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int minmax_flood_launch(const void* mover, const void* opp, void* mn, void* mx,
+                                   int batch, int n, void* stream) {
+  if (n < 1 || n * n > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
+  const MinmaxOp::Out out = {static_cast<int16_t*>(mn), static_cast<int16_t*>(mx)};
+  return static_cast<int>(launch_components<MinmaxOp>(mover, opp, out, batch, n,
+                                                      static_cast<cudaStream_t>(stream)));
 }

@@ -2,9 +2,10 @@
 
 Each kernel is a ``csrc/*.cu`` source with a plain C launcher.  It is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library at first use, into
-``gymgo_tpu_torch/_build/`` (named by a hash of the source, so an edited source
-builds anew), and loaded with ``ctypes``.  Nothing is compiled or loaded when
-this module is imported.  Every wrapper of a kernel keeps its own
+``gymgo_tpu_torch/_build/`` (named by a hash of the source and of every file
+it includes with quotes, so an edited source or header builds anew), and
+loaded with ``ctypes``.  Nothing is compiled or loaded when this module is
+imported.  Every wrapper of a kernel keeps its own
 ``CudaKernelLib``, and so its own launch count.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernelLib", "check_planes"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernelLib", "check_planes", "source_files"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +32,25 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+_QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> list[Path]:
+    """``source`` and every file it includes with quotes, transitively, each
+    looked up beside the file that includes it, in a fixed order."""
+    found, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for name in _QUOTED_INCLUDE.findall(path.read_text()):
+            included = (path.parent / name).resolve()
+            if included.is_file():
+                todo.append(included)
+    return sorted(found)
 
 
 def _nvcc() -> str:
@@ -56,11 +77,14 @@ class CudaKernelLib:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
+        digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+        for path in source_files(self.source):
+            digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+        return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
-        """Compile the source unless a library of this exact source exists."""
+        """Compile the source unless a library of this exact source and
+        headers exists."""
         lib = self.library_path()
         if lib.exists():
             return lib

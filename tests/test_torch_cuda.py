@@ -15,7 +15,7 @@ from gymgo_tpu_torch.core.state import batch_init_state
 from gymgo_tpu_torch.env.batch_env import rollout
 from gymgo_tpu_torch.ops import bundle_flood as tbundle
 from gymgo_tpu_torch.ops import minmax_flood as tminmax
-from torch_boards import adversarial_boards, random_boards
+from torch_boards import adversarial_boards, component_boards, random_boards
 
 pytestmark = pytest.mark.cuda
 
@@ -27,18 +27,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _boards_on(device, n, seed):
+    """Random, adversarial and component boards at size ``n``: 352 boards, so
+    every warp of a block has a board."""
+    planes = [random_boards(np.random.default_rng(seed), 333, n), adversarial_boards(n), component_boards(n)]
+    return tuple(torch.from_numpy(np.concatenate(x)).to(device) for x in zip(*planes))
+
+
+def _odd_batches(a, b):
+    """One board, one board more than a block's warps, and a contiguous slice
+    whose address is no multiple of 16 at N = 19."""
+    return [(a[:1], b[:1]), (a[:17], b[:17]), (a[3:], b[3:])]
+
+
 @pytest.mark.parametrize("n", [5, 9, 19, 22])
 def test_kernel_matches_plain(n, cuda_device):
-    a, b = random_boards(np.random.default_rng(4), 333, n)
-    aa, ab = adversarial_boards(n)
-    a = torch.from_numpy(np.concatenate([a, aa])).to(cuda_device)
-    b = torch.from_numpy(np.concatenate([b, ab])).to(cuda_device)
+    a, b = _boards_on(cuda_device, n, 4)
     launches = tbundle.BUNDLE_FLOOD.launches
     got = tbundle.bundle_flood_cuda(a, b)
     assert tbundle.BUNDLE_FLOOD.launches == launches + 1
     # bit for bit: integer words
-    assert torch.equal(got.cpu(), bundle_flood_plain(a.cpu(), b.cpu()))
+    want = bundle_flood_plain(a.cpu(), b.cpu())
+    assert torch.equal(got.cpu(), want)
     assert torch.equal(tbundle.bundle_flood(a.to(torch.uint8), b.to(torch.uint8)), got)
+    if n == 19:
+        assert a[3:].data_ptr() % 16 != 0
+        for (sa, sb), sw in zip(_odd_batches(a, b), _odd_batches(want, want)):
+            assert torch.equal(tbundle.bundle_flood_cuda(sa, sb).cpu(), sw[0])
 
 
 def test_rollout_goes_through_the_kernel_and_replays_on_cpu(cuda_device):
@@ -70,10 +85,7 @@ def test_kernel_rejects_bad_input(cuda_device):
 
 @pytest.mark.parametrize("n", [5, 9, 19, 22, 32])
 def test_minmax_kernel_matches_plain(n, cuda_device):
-    a, b = random_boards(np.random.default_rng(5), 333, n)
-    aa, ab = adversarial_boards(n)
-    a = torch.from_numpy(np.concatenate([a, aa])).to(cuda_device)
-    b = torch.from_numpy(np.concatenate([b, ab])).to(cuda_device)
+    a, b = _boards_on(cuda_device, n, 5)
     launches = tminmax.MINMAX_FLOOD.launches
     mn, mx = tminmax.minmax_flood_cuda(a, b)
     assert tminmax.MINMAX_FLOOD.launches == launches + 1
@@ -82,6 +94,10 @@ def test_minmax_kernel_matches_plain(n, cuda_device):
     assert torch.equal(mn.cpu(), pmn) and torch.equal(mx.cpu(), pmx)
     wmn, wmx = tminmax.minmax_flood(a.to(torch.uint8), b.to(torch.uint8))
     assert torch.equal(wmn, mn) and torch.equal(wmx, mx)
+    if n == 19:
+        for (sa, sb), (smn, smx) in zip(_odd_batches(a, b), _odd_batches(pmn, pmx)):
+            kmn, kmx = tminmax.minmax_flood_cuda(sa, sb)
+            assert torch.equal(kmn.cpu(), smn) and torch.equal(kmx.cpu(), smx)
 
 
 def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_device):

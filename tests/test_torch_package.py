@@ -49,9 +49,37 @@ def test_kernel_source_ships_with_the_package():
 
     assert bundle_flood.SOURCE.is_file()
     assert minmax_flood.SOURCE.is_file()
+    # the header both include ships too, and counts as part of each source
+    header = cuda_lib.CSRC / "board_components.cuh"
+    assert header.is_file()
+    for source in (bundle_flood.SOURCE, minmax_flood.SOURCE):
+        assert header in cuda_lib.source_files(source)
+    package_data = (_REPO / "pyproject.toml").read_text()
+    assert "csrc/*.cu" in package_data and "csrc/*.cuh" in package_data
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     # each kernel keeps its own launch count
     assert bundle_flood.BUNDLE_FLOOD is not minmax_flood.MINMAX_FLOOD
+
+
+def test_library_name_follows_the_source_and_its_headers(tmp_path):
+    import shutil
+
+    from gymgo_tpu_torch.ops import cuda_lib
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, csrc)
+    lib = cuda_lib.CudaKernelLib(csrc / "bundle_flood.cu", "bundle_flood_launch", ())
+    other = cuda_lib.CudaKernelLib(csrc / "minmax_flood.cu", "minmax_flood_launch", ())
+    before, other_before = lib.library_path(), other.library_path()
+    assert lib.library_path() == before  # the same content, the same name
+    with open(csrc / "board_components.cuh", "a") as f:
+        f.write("// edited\n")
+    assert lib.library_path() != before and other.library_path() != other_before
+    after = lib.library_path()
+    with open(csrc / "bundle_flood.cu", "a") as f:
+        f.write("// edited\n")
+    assert lib.library_path() != after
+    assert other.library_path() != other_before  # its header changed, its source did not
 
 
 @pytest.fixture
