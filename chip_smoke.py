@@ -40,15 +40,33 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      rollout replayed on the CPU plain path; states, rewards and dones must
      agree;
  11. timing: the minmax kernel against its plain version on the steady-state
-     boards of phase 4, with CUDA events, beside the byte bound.
+     boards of phase 4, with CUDA events, beside the byte bound;
+ 12. net on the card: ``load_aznet_npz`` of the committed 19x19 128x6 artifact;
+     on 512 steady-state states of phase 4, float32 logits and value on the
+     card against the same module on the CPU (TF32 off, atol 2e-4), bfloat16
+     against float32 on the card, and the forward time at B = 512 in both;
+ 13. search at full width: ``run_gumbel_mcts``, 32 simulations, 16 considered,
+     B = 256 states of phase 4, the 128x6 net in bfloat16: legal actions,
+     32 visits per env, policies that sum to 1 and vanish on invalid moves,
+     the same result from the same seed; searches/s, ms, kernel launches and
+     host syncs per simulation, bundle launches; then B = 32, 16 simulations,
+     float32, injected noise, replayed on the CPU plain path;
+ 14. a match: ``play_match`` on 9x9, the committed ``az9_r5_iter100`` net with
+     the full search wrapped in ``with_pass_to_win`` against the uniform
+     sampler, 128 games to the move cap of 243, which it must win at 0.85 or
+     better by area; then 8 plies of the same at 19x19 with the 128x6 net,
+     B = 128, 4 opening moves.
 
-The line before the nvidia-smi line is a JSON object with both kernels'
-numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
-exits non-zero without printing a result when CUDA is unavailable.
+Phases 12-14 are the play path; the launch counts are set to 0 before the
+search and before each match and read after.  The line before the nvidia-smi
+line is a JSON object with both kernels' numbers; the last line is
+``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero without
+printing a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -56,12 +74,17 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SEED = 0
+ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
+NET_19 = ARTIFACTS / "az19_big128x6_iter830_params.npz"
+NET_9 = ARTIFACTS / "az9_r5_iter100_params.npz"
 
 
 def fail(msg: str):
@@ -181,6 +204,38 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def host_syncs():
+    """Yields a list that gains one warning per synchronizing CUDA call made
+    inside the block (PyTorch's sync debug mode, set to warn)."""
+    previous = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+
+
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler: (wall us, [(device us, launches,
+    kernel name)] by device time).  Kernel events only: an aten op's row
+    repeats the time of its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    return wall_us, sorted(rows, reverse=True)
+
+
 def timed_windows(rollout, gen, states, cfg, window, repeats):
     """``repeats`` rollouts of ``window`` steps, each ending on a scalar
     checksum fetch; returns (env-steps/s per window, the Rollouts, the start
@@ -203,6 +258,163 @@ def timed_windows(rollout, gen, states, cfg, window, repeats):
 def rates_text(rates):
     return (f"env-steps/s median {statistics.median(rates):.1f} min {min(rates):.1f} "
             f"max {max(rates):.1f} (runs {', '.join(f'{x:.1f}' for x in rates)})")
+
+
+def masked_argmax(logits, valid):
+    return torch.where(valid, logits, -torch.inf).argmax(dim=1)
+
+
+def play_path(dev, states, bundle_lib, minmax_lib):
+    """Phases 12-14: the net, the search and the match on the card, from the
+    steady-state 19x19 ``states`` of phase 4.  Returns the launch counts of
+    the search and of the two matches, read after each with the counts set
+    to 0 before it: ``(of the bundle kernel, of the min/max kernel)``."""
+    from gymgo_tpu_torch.config import EnvConfig
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core.actions import batch_valid_moves, gumbel_noise, uniform_random_actions
+    from gymgo_tpu_torch.rl.evaluate import play_match, with_pass_to_win
+    from gymgo_tpu_torch.rl.gumbel_mcts import make_gumbel_mcts_policy, run_gumbel_mcts
+
+    SIMS, CONSIDERED = 32, 16
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    # 12. the net on the card
+    net32 = load_aznet_npz(NET_19, device=dev, dtype=torch.float32)
+    net16 = load_aznet_npz(NET_19, device=dev, dtype=torch.bfloat16)
+    cfg19 = net16.config
+    if (cfg19.board_size, cfg19.channels, cfg19.blocks) != (19, 128, 6):
+        fail(f"{NET_19.name} is not the 19x19 128x6 net: {cfg19}")
+    x = states[:512]
+    valid = batch_valid_moves(x) > 0
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        logits_cpu, value_cpu = load_aznet_npz(NET_19, device="cpu", dtype=torch.float32)(x.cpu())
+        logits32, value32 = net32(x)
+        logits16, value16 = net16(x)
+        ms32 = time_ms(lambda: net32(x), 20)
+        ms16 = time_ms(lambda: net16(x), 20)
+    err_logits = float((logits32.cpu() - logits_cpu).abs().max())
+    err_value = float((value32.cpu() - value_cpu).abs().max())
+    NET_ATOL = 2e-4  # float32 on both sides, TF32 off: only the order of the sums differs
+    if not (err_logits <= NET_ATOL and err_value <= NET_ATOL):
+        fail(f"float32 net: card and CPU differ by {err_logits} (logits), {err_value} (value)")
+    for t in (logits16, value16):
+        if t.dtype != torch.float32 or not bool(torch.isfinite(t).all()):
+            fail("bfloat16 net: output not finite float32")
+    agree = float((masked_argmax(logits16, valid) == masked_argmax(logits32, valid)).float().mean())
+    print(f"[12 net] {NET_19.name} 19x19 {cfg19.channels}x{cfg19.blocks}, B=512: float32 card vs CPU "
+          f"max |diff| logits {err_logits:.3g}, value {err_value:.3g} (TF32 off, atol {NET_ATOL}); "
+          f"bfloat16 vs float32 on the card max |diff| logits {float((logits16 - logits32).abs().max()):.4f}, "
+          f"value {float((value16 - value32).abs().max()):.4f}, argmax over legal moves agrees on "
+          f"{100 * agree:.1f}% of states; forward float32 (TF32 off) {ms32:.3f} ms, bfloat16 {ms16:.3f} ms",
+          flush=True)
+
+    # 13. search at full width
+    B13 = 256
+    roots = states[:B13].clone()
+    valid = batch_valid_moves(roots) > 0
+
+    def search(seed, sims=SIMS):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return run_gumbel_mcts(gen, roots, net16, num_simulations=sims, max_considered=CONSIDERED)
+
+    search(SEED + 13)  # warm up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    bundle_lib.launches = minmax_lib.launches = 0
+    t0 = time.perf_counter()
+    res = search(SEED + 13)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    search_launches, search_minmax = bundle_lib.launches, minmax_lib.launches
+    again = search(SEED + 13)
+    if not all(torch.equal(p, q) for p, q in zip(res, again)):
+        fail("the same seed gave two different searches")
+    if not bool(valid.gather(1, res.actions.long()[:, None]).all()):
+        fail("the search returned an illegal action")
+    if not bool((res.root_visits.sum(1) == SIMS).all()):
+        fail("root visits do not sum to the simulation count")
+    policy_sum = res.improved_policy.sum(1)
+    if not (bool(((policy_sum - 1).abs() < 1e-4).all()) and bool((res.improved_policy[~valid] == 0).all())):
+        fail("improved policy does not sum to 1 over the valid moves")
+    if not bool(torch.isfinite(res.root_value).all()):
+        fail("root value not finite")
+    if search_launches < SIMS + 1 or search_minmax != 0:
+        fail(f"search: {search_launches} bundle launches, {search_minmax} min/max launches")
+    with host_syncs() as caught:
+        search(SEED + 13)
+    syncs = len(caught)
+    prof_wall_us, rows = device_profile(lambda: search(SEED + 13))
+    busy_us = sum(r[0] for r in rows)
+    top = "; ".join(f"{k[:48]} {us / SIMS:.1f} us x{c / SIMS:.1f}" for us, c, k in rows[:6])
+    print(f"[13 search] 19x19 128x6 bfloat16, B={B13}, {SIMS} simulations, {CONSIDERED} considered: "
+          f"{B13 / wall:.1f} searches/s, {1e3 * wall / SIMS:.3f} ms/simulation, "
+          f"{sum(r[1] for r in rows) / SIMS:.1f} kernel launches and {syncs / SIMS:.2f} host syncs per "
+          f"simulation, bundle launches {search_launches} (the board before the move and after it, per expansion); "
+          f"under the profiler {prof_wall_us / SIMS:.1f} us/simulation wall, device busy "
+          f"{busy_us / SIMS:.1f} us/simulation; top: {top}", flush=True)
+
+    B_R, SIMS_R = 32, 16
+    noise = gumbel_noise(torch.Generator(device=dev).manual_seed(SEED + 14), (B_R, 19 * 19 + 1), dev)
+    on_card = run_gumbel_mcts(None, roots[:B_R], net32, num_simulations=SIMS_R,
+                              max_considered=CONSIDERED, gumbel=noise)
+    net_cpu = load_aznet_npz(NET_19, device="cpu", dtype=torch.float32)
+    on_cpu = run_gumbel_mcts(None, roots[:B_R].cpu(), net_cpu, num_simulations=SIMS_R,
+                             max_considered=CONSIDERED, gumbel=noise.cpu())
+    differ = int(((on_card.actions.cpu() != on_cpu.actions)
+                  | (on_card.root_visits.cpu() != on_cpu.root_visits).any(1)).sum())
+    if differ > 1:
+        fail(f"search replay: {differ} of {B_R} envs differ between the card and the CPU")
+    policy_err = float((on_card.improved_policy.cpu() - on_cpu.improved_policy).abs().max())
+    print(f"[13 search replay] B={B_R}, {SIMS_R} simulations, float32 (TF32 off), injected noise: card vs "
+          f"CPU plain path: actions and root visits differ on {differ} of {B_R} envs (at most 1 allowed: "
+          f"a float near-tie may flip a visit); max |diff| improved policy {policy_err:.3g}", flush=True)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # 14. a match, end to end
+    def searcher(net):
+        policy = make_gumbel_mcts_policy(net, num_simulations=SIMS, max_considered=CONSIDERED,
+                                         pass_min_stones=1 << 20)
+        return with_pass_to_win(policy)
+
+    net9 = load_aznet_npz(NET_9, device=dev, dtype=torch.bfloat16)
+    GAMES, CAP = 128, 3 * 9 * 9
+    bundle_lib.launches = minmax_lib.launches = 0
+    t0 = time.perf_counter()
+    m9 = play_match(torch.Generator(device=dev).manual_seed(SEED + 15), searcher(net9), uniform_random_actions,
+                    EnvConfig(board_size=9), num_games=GAMES, max_steps=CAP, device=dev)
+    tallies = {k: v.item() for k, v in m9._asdict().items()}
+    wall9 = time.perf_counter() - t0
+    match9_launches, match9_minmax = bundle_lib.launches, minmax_lib.launches
+    if tallies["a_scored_wins"] + tallies["b_scored_wins"] + tallies["scored_ties"] != GAMES:
+        fail(f"9x9 match: tallies do not add up: {tallies}")
+    if not tallies["a_scored_winrate"] >= 0.85:
+        fail(f"9x9 match: the net won {tallies['a_scored_winrate']:.3f} of the games against random")
+    print(f"[14 match] 9x9 {NET_9.name} bfloat16, search {SIMS}/{CONSIDERED} with pass-to-win vs uniform "
+          f"random, {GAMES} games, cap {CAP}: {json.dumps(tallies)}; {wall9:.1f} s, "
+          f"bundle launches {match9_launches}", flush=True)
+
+    PLIES, B14 = 8, 128
+    bundle_lib.launches = minmax_lib.launches = 0
+    t0 = time.perf_counter()
+    m19, final = play_match(torch.Generator(device=dev).manual_seed(SEED + 16), searcher(net16),
+                            uniform_random_actions, EnvConfig(board_size=19), num_games=B14,
+                            max_steps=PLIES, opening_moves=4, with_states=True, device=dev)
+    stones = final[:, :2].to(torch.int32).sum().item() / B14
+    wall19 = time.perf_counter() - t0
+    match19_launches, match19_minmax = bundle_lib.launches, minmax_lib.launches
+    if not PLIES - 0.5 < stones <= PLIES:  # the random side may pass, rarely
+        fail(f"19x19 match: {stones} stones a board after {PLIES} plies")
+    if match19_launches < PLIES * (SIMS + 1):
+        fail(f"19x19 match: {match19_launches} bundle launches in {PLIES} plies")
+    print(f"[14 match] 19x19 128x6 bfloat16, B={B14}, 4 opening moves, {PLIES} plies: {PLIES / wall19:.2f} "
+          f"plies/s ({B14 * PLIES / wall19:.1f} moves/s, of which the net searches every other one), "
+          f"{stones:.2f} stones a board, {m19.unfinished.item()} games unfinished; "
+          f"bundle launches {match19_launches}", flush=True)
+    minmax_counts = {"search": search_minmax, "match_9x9": match9_minmax, "match_19x19": match19_minmax}
+    if any(minmax_counts.values()):
+        fail(f"the play path launched the min/max kernel on the default route: {minmax_counts}")
+    return ({"search": search_launches, "match_9x9": match9_launches, "match_19x19": match19_launches},
+            minmax_counts)
 
 
 def main() -> int:
@@ -323,21 +535,9 @@ def main() -> int:
           f"({(2 + 4) * B * N * N} bytes at 3.35 TB/s)", flush=True)
 
     # 7. profile of the main path
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     PROF_STEPS = 16
     rollout(gen, states, 4, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rollout(gen, states, PROF_STEPS, cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # kernel events only: an aten op's row repeats the time of its kernels
-    rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    wall_us, rows = device_profile(lambda: rollout(gen, states, PROF_STEPS, cfg))
     busy_us = sum(r[0] for r in rows)
     if busy_us > 0:
         top = "; ".join(f"{k[:60]} {us / PROF_STEPS:.1f} us/step x{c // PROF_STEPS}" for us, c, k in rows[:8])
@@ -415,12 +615,15 @@ def main() -> int:
           f"(again {mm_ms_2:.4f}), plain {mm_plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "
           f"({(2 + 4) * B * N * N} bytes at 3.35 TB/s)", flush=True)
 
+    play_launches, play_minmax_launches = play_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
         "route": "cuda",
         "source": "gymgo_tpu_torch/csrc/bundle_flood.cu",
         "replaces": "gymgo_tpu/ops/pallas_flood.py:163",
         "launches": launches,
+        "launches_play_path": play_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,
@@ -433,6 +636,7 @@ def main() -> int:
         "source": "gymgo_tpu_torch/csrc/minmax_flood.cu",
         "replaces": "gymgo_tpu/ops/pallas_flood.py:33",
         "launches": mm_launches,
+        "launches_play_path": play_minmax_launches,
         "max_abs_err": mm_err,
         "ms": min(mm_ms, mm_ms_2),
         "plain_ms": mm_plain_ms,

@@ -5,7 +5,9 @@ The same 6-channel int8 state ``(B, 6, N, N)`` is stepped in lockstep for
 thousands of games; the flood that classifies groups and claims areas every
 step runs hand CUDA kernels: the bundle flood (``csrc/bundle_flood.cu``) on the
 default route, the min/max liberty flood (``csrc/minmax_flood.cu``) on the
-minmax route (``GYMGO_FLOOD``, as in the JAX package).  Entry points run
+minmax route (``GYMGO_FLOOD``, as in the JAX package).  On top of the env:
+the AZNet (``models``) with a loader of the JAX package's checkpoints
+(``convert``), Gumbel search and match play (``rl``).  Entry points run
 on ``cuda`` unless the caller passes another device, and raise when there is no
 card.  This package imports nothing of JAX or of ``gymgo_tpu``.
 """

@@ -1,5 +1,5 @@
-"""Move masks and the on-device uniform sampler (counterpart of
-``gymgo_tpu.core.actions``).
+"""Move masks, the one-ply expansion and the on-device samplers (counterpart
+of ``gymgo_tpu.core.actions``).
 
 The sampler draws one random word per env, ``k ~ U[0, num_valid]``, and picks
 the k-th valid move by rank (pass ranks last).  The draw and the rank-select
@@ -16,10 +16,14 @@ from gymgo_tpu_torch import govars
 __all__ = [
     "batch_invalid_moves",
     "batch_valid_moves",
+    "mask_early_pass",
+    "children",
     "kth_valid_actions",
     "draw_k",
     "uniform_random_actions",
     "uniform_random_actions_planes",
+    "gumbel_noise",
+    "weighted_random_actions",
 ]
 
 
@@ -33,6 +37,46 @@ def batch_invalid_moves(states: torch.Tensor) -> torch.Tensor:
 
 def batch_valid_moves(states: torch.Tensor) -> torch.Tensor:
     return 1.0 - batch_invalid_moves(states)
+
+
+def mask_early_pass(valid: torch.Tensor, states: torch.Tensor, min_stones: int) -> torch.Tensor:
+    """Disallow pass while the board holds fewer than ``min_stones`` stones and
+    another legal move exists (the self-play opening constraint; pass stays
+    allowed once no board move is legal).
+
+    ``valid``: bool or 0/1 ``(B, N*N+1)`` with pass last; returns bool, and
+    the mask itself (cast to bool) when ``min_stones <= 0``."""
+    valid = valid if valid.dtype == torch.bool else valid > 0
+    if min_stones <= 0:
+        return valid
+    b = states.shape[0]
+    stones = states[:, :2].reshape(b, -1).sum(1, dtype=torch.int32)
+    board_any = valid[:, :-1].any(dim=1)
+    allow_pass = (stones >= min_stones) | ~board_any
+    out = valid.clone()
+    out[:, -1] &= allow_pass
+    return out
+
+
+def children(state: torch.Tensor, canonical: bool = False) -> torch.Tensor:
+    """One-ply expansion of a single state ``(6, N, N)``: ``(N*N+1, 6, N, N)``.
+
+    Row a holds the state after action a where a is valid and zeros where it
+    is not (the reference's padded layout); once the game is done every row
+    is valid and holds the unchanged state."""
+    from gymgo_tpu_torch.core.step import step_states
+    from gymgo_tpu_torch.core.transform import batch_canonical_form
+
+    n = state.shape[-1]
+    num_actions = n * n + 1
+    tiled = state[None].expand((num_actions,) + tuple(state.shape)).contiguous()
+    actions = torch.arange(num_actions, dtype=torch.int32, device=state.device)
+    stepped, info = step_states(tiled, actions)
+    if canonical:
+        stepped = batch_canonical_form(stepped)
+    ended = state[govars.DONE_CHNL, 0, 0] != 0
+    valid = ~info.invalid_action | ended
+    return torch.where(valid[:, None, None, None], stepped, 0).to(state.dtype)
 
 
 def kth_valid_actions(valid_board: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -96,3 +140,24 @@ def uniform_random_actions_planes(generator: torch.Generator, ps) -> torch.Tenso
     """``uniform_random_actions`` on the planes state (reads its invd plane)."""
     b = ps.invd.shape[0]
     return _uniform_from_valid(generator, ~ps.invd.reshape(b, -1))
+
+
+def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel draws, float32 ``shape``, from ``generator`` on
+    ``device``: ``-log(-log(u))`` with u uniform in [tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def weighted_random_actions(generator: torch.Generator, weights: torch.Tensor,
+                            gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """Sample actions in proportion to non-negative ``weights`` ``(B, N*N+1)``;
+    an invalid move carries weight 0 and is never drawn.
+
+    The draw is the argmax of ``log(weights) + gumbel``; ``gumbel`` (float32,
+    the shape of ``weights``) is drawn from ``generator`` unless given."""
+    logits = torch.where(weights > 0, torch.log(weights.clamp_min(1e-30)), -torch.inf)
+    if gumbel is None:
+        gumbel = gumbel_noise(generator, weights.shape, weights.device)
+    return (logits + gumbel).argmax(dim=-1).to(torch.int32)

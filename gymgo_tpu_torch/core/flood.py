@@ -12,7 +12,8 @@ The floods, each with a plain PyTorch version that checks convergence on the
 host every few substeps:
 
 * ``flood_or``: an OR-flood through a mask; the stateless capture path of
-  ``step_states``, the scoring and the minmax route's claim flood use it.
+  ``step_states`` and the scoring use it on CPU tensors, the minmax route's
+  claim flood on every device.
 * the bundle flood: one packed int32 OR-flood per cell that yields the liberty
   classes, the Trump-Taylor claims and the atari encoding of every step.
   ``bundle_flood_plain`` is its plain version; on a CUDA tensor

@@ -9,8 +9,12 @@ flagged in ``StepInfo``.
 Algorithm (the same as the JAX package's, so results agree bit for bit):
 
 * Captures: with the carried ``atari`` plane, an opponent group dies iff its
-  sole liberty is the point just played; without it, a plain OR-flood of
-  "touches an empty cell" through the opponent's stones.
+  sole liberty is the point just played.  Without it, CPU tensors take the
+  JAX package's stateless path, a plain OR-flood of "touches an empty cell"
+  through the opponent's stones.  CUDA tensors classify the board before the
+  move with one launch of the selected route's kernel instead: a group dies
+  iff its sole liberty is the point played or it stands without a liberty
+  already (a hand-made board), which is what that flood finds.
 * One flood of the post-capture board, by the route ``core.flood`` selects
   (``flood_bundle_best``: the bundle flood by default, else the minmax
   route), classifies every group by its number of distinct liberties
@@ -121,9 +125,22 @@ def init_ko_surr(ps: PlanesState) -> torch.Tensor:
 
 
 def init_atari(ps: PlanesState) -> torch.Tensor:
-    """Seed the carried atari encoding for an arbitrary board (one flood of
-    the selected route; every later ``step_planes`` refreshes it for free)."""
-    return _flood.flood_bundle_best(ps.black, ps.white)[4]
+    """Seed the carried atari encoding for an arbitrary board (one liberty
+    classification of the selected route; every later ``step_planes``
+    refreshes it for free)."""
+    return _flood.liberty_classification_best(ps.black.contiguous(), ps.white.contiguous())[2]
+
+
+def _killed_by_classes(black, white, opp, board_idx):
+    """Opponent stones that a stone at ``board_idx`` removes, from one liberty
+    classification of the board before the move (no host sync on CUDA
+    tensors): groups whose sole liberty is that point, and groups that stand
+    without a liberty already.  Equal to the flood of the board after the
+    move, since the move takes away that one empty cell and no other."""
+    one_lib, multi_lib, atari = _flood.liberty_classification_best(
+        black.contiguous(), white.contiguous())
+    placed_enc = (board_idx + 1).to(torch.int16)[:, None, None]
+    return opp & ((atari == placed_enc) | ~(one_lib | multi_lib))
 
 
 def invalid_action_flags(states: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
@@ -141,8 +158,9 @@ def invalid_action_flags(states: torch.Tensor, actions: torch.Tensor) -> torch.T
 def step_planes(ps: PlanesState, actions: torch.Tensor):
     """Core transition on the planes state; see ``step_states``.
 
-    With the carried planes set, it makes no host sync.  Without them the
-    capture flood checks its convergence on the host.
+    On CUDA tensors it makes no host sync on the default route, with or
+    without the carried planes.  On CPU tensors without ``atari`` the capture
+    flood is the plain ``flood_or``, which checks its convergence on the host.
     """
     b, n, _ = ps.black.shape
     m = n * n
@@ -178,12 +196,14 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     else:
         surrounded_pre = at_place(_surrounded_by(opp))
 
-    if ps.atari is None:
-        has_lib = flood_or(opp & neighbor_or(~(mover | opp)), opp)
-        killed = opp & ~has_lib & np3
+    if ps.atari is not None:
+        placed_enc = (board_idx + 1).to(torch.int16)[:, None, None]
+        killed = opp & (ps.atari == placed_enc)
+    elif black.is_cuda:
+        killed = _killed_by_classes(black, white, opp, board_idx)
     else:
-        placed_enc = (board_idx + 1).to(torch.int16)
-        killed = opp & (ps.atari == placed_enc[:, None, None]) & np3
+        killed = opp & ~flood_or(opp & neighbor_or(~(mover | opp)), opp)
+    killed = killed & np3
     opp = opp & ~killed
 
     # Frozen envs flood their unchanged board, so the areas and carried

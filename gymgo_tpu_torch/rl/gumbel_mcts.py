@@ -1,0 +1,267 @@
+"""Batched Gumbel MCTS with sequential halving (counterpart of
+``gymgo_tpu.rl.gumbel_mcts``).
+
+Policy-improvement search that is an improvement operator even at tiny
+simulation budgets (Danihelka et al., "Policy improvement by planning with
+Gumbel", 2022): sample ``max_considered`` root actions without replacement by
+Gumbel-top-k, spread the simulation budget over them with sequential halving
+(scores g + logits + sigma(q)), and descend interior nodes with the
+deterministic completed-Q rule.  The returned ``improved_policy`` =
+softmax(logits + sigma(completedQ)) is the AZ training target; ``actions`` is
+the halving winner (no sampling noise beyond the root Gumbels).
+
+The simulator is the exact env step (one ``step_states`` per simulation, so
+one launch of the flood kernel of the step and one of its seed), the whole
+search is batched over envs, and the tree lives in fixed-shape tensors: node 0
+is the root and simulation i expands slot i + 1.  Only the JAX package's
+default tree layout (float32 / int32) is here.
+
+Ties are resolved as in JAX so that, given the same Gumbel noise, both
+packages search the same tree: the top-k and the rank of the candidates come
+from stable descending sorts (the lower index first among equals, which is
+what ``lax.top_k`` and ``jnp.argsort`` give), and ``argmax`` / ``argmin`` take
+the first of equals in both.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from gymgo_tpu_torch.core import actions as _actions
+from gymgo_tpu_torch.core import state as _state
+from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.core import transform as _transform
+from gymgo_tpu_torch.rl import treewalk as _treewalk
+
+__all__ = ["GumbelMCTSResult", "seq_halving_schedule", "run_gumbel_mcts", "make_gumbel_mcts_policy"]
+
+
+class GumbelMCTSResult(NamedTuple):
+    actions: torch.Tensor  # int32 (B,): sequential-halving winner
+    improved_policy: torch.Tensor  # float32 (B, A): softmax(logits + sigma(cQ))
+    root_value: torch.Tensor  # float32 (B,): completed-Q root estimate
+    root_visits: torch.Tensor  # int32 (B, A)
+    sampled_actions: torch.Tensor  # int32 (B, M): Gumbel-top-k candidates
+
+
+def seq_halving_schedule(num_simulations: int, max_considered: int) -> tuple:
+    """Static per-simulation considered-count table.
+
+    Phase p keeps ``m / 2^p`` candidates and gives each
+    ``max(1, n // (ceil(log2 m) * considered))`` visits; once one candidate
+    remains, the tail of the budget keeps refining it.
+    """
+    n, m = num_simulations, max(2, max_considered)
+    log2m = max(1, math.ceil(math.log2(m)))
+    out: list[int] = []
+    considered = m
+    while len(out) < n:
+        if considered > 1:
+            per_candidate = max(1, n // (log2m * considered))
+            block = per_candidate * considered
+        else:
+            block = n - len(out)
+        out.extend([considered] * min(block, n - len(out)))
+        considered = max(1, considered // 2)
+    return tuple(out)
+
+
+def _sigma(q, max_visit, c_visit: float, c_scale: float):
+    """Monotone value->logit transform: (c_visit + maxN) * c_scale * q."""
+    return (c_visit + max_visit.to(torch.float32)) * c_scale * q
+
+
+@torch.no_grad()
+def run_gumbel_mcts(
+    generator: torch.Generator,
+    states: torch.Tensor,
+    net,
+    num_simulations: int = 32,
+    max_considered: int = 16,
+    c_visit: float = 50.0,
+    c_scale: float = 1.0,
+    komi: float = 0.0,
+    pass_min_stones: int = 0,
+    gumbel: torch.Tensor | None = None,
+) -> GumbelMCTSResult:
+    """Run Gumbel MCTS from each state, on the states' device.
+
+    ``net(canonical_states) -> (logits, value)``, the value from the canonical
+    mover's view: an ``AZNet`` or any callable.  ``gumbel`` is the root noise,
+    float32 ``(B, N*N+1)``; it is drawn from ``generator`` unless given, so a
+    caller can hand two searches the same noise.
+
+    ``pass_min_stones`` > 0 applies the self-play opening constraint
+    (``actions.mask_early_pass``) to the root action set only; interior nodes
+    search the full rules."""
+    b = states.shape[0]
+    n = states.shape[-1]
+    dev = states.device
+    a_size = n * n + 1
+    m = min(max_considered, a_size)
+    num_nodes = num_simulations + 1
+    max_depth = num_simulations + 1
+    schedule = seq_halving_schedule(num_simulations, m)
+    neg_inf = -torch.inf
+
+    def masked_policy(sts):
+        logits, value = net(_transform.batch_canonical_form(sts))
+        valid = _actions.batch_valid_moves(sts) > 0
+        return torch.where(valid, logits, neg_inf), value, valid
+
+    root_logits, root_value_net, valid_root = masked_policy(states)
+    valid_root = _actions.mask_early_pass(valid_root, states, pass_min_stones)
+    root_logits = torch.where(valid_root, root_logits, neg_inf)
+    if gumbel is None:
+        gumbel = _actions.gumbel_noise(generator, (b, a_size), dev)
+    g = gumbel.to(device=dev, dtype=torch.float32)
+    # Gumbel-top-m without replacement over valid actions; an env with fewer
+    # than m valid actions fills its tail with the lowest invalid indices.
+    noisy = torch.where(valid_root, root_logits + g, neg_inf)
+    cand = noisy.sort(dim=1, descending=True, stable=True).indices[:, :m]  # (B, M) int64
+    cand_valid = valid_root.gather(1, cand)
+    cand_base = torch.where(cand_valid, noisy.gather(1, cand), neg_inf)
+
+    # Tree arrays.  Values are stored from the node mover's view throughout.
+    node_states = torch.zeros((b, num_nodes) + tuple(states.shape[1:]), dtype=states.dtype, device=dev)
+    node_states[:, 0] = states
+    node_done = torch.zeros((b, num_nodes), dtype=torch.bool, device=dev)
+    node_done[:, 0] = _state.game_ended(states)
+    node_value = torch.zeros((b, num_nodes), dtype=torch.float32, device=dev)
+    node_value[:, 0] = root_value_net
+    prior = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
+    prior[:, 0] = torch.softmax(root_logits, dim=-1)
+    visit = torch.zeros((b, num_nodes, a_size), dtype=torch.int32, device=dev)
+    wsum = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
+    child = torch.full((b, num_nodes, a_size), -1, dtype=torch.int32, device=dev)
+
+    bidx = torch.arange(b, device=dev)
+    slot_rank = torch.arange(m, dtype=torch.int32, device=dev).expand(b, m)
+    depth_iota = torch.arange(max_depth, dtype=torch.int32, device=dev)
+
+    def root_candidate_stats():
+        """Per-candidate (N, q) at the root; q from the root mover's view."""
+        cn = visit[:, 0].gather(1, cand)
+        cw = wsum[:, 0].gather(1, cand)
+        return cn, torch.where(cn > 0, cw / cn.clamp_min(1), 0.0)
+
+    def candidate_scores(cq):
+        max_n = visit[:, 0].amax(dim=1, keepdim=True)
+        return cand_base + _sigma(cq, max_n, c_visit, c_scale), max_n
+
+    def interior_scores():
+        """Deterministic non-root selection: argmax pi'(a) - N(a)/(1+sumN), for
+        all (B, M) nodes at once (the statistics are frozen during one walk).
+        completedQ(a) = q(a) when visited, else the node's own net value."""
+        total = visit.sum(dim=-1, keepdim=True)
+        q = torch.where(visit > 0, wsum / visit.clamp_min(1).to(torch.float32), node_value[..., None])
+        logits_pi = torch.log(prior.clamp_min(1e-30))
+        max_n = visit.amax(dim=-1, keepdim=True)
+        improved = torch.softmax(logits_pi + _sigma(q, max_n, c_visit, c_scale), dim=-1)
+        scores = improved - visit.to(torch.float32) / (1.0 + total)
+        return torch.where(prior > 0, scores, neg_inf)
+
+    for sim in range(num_simulations):
+        # ---- root action by sequential halving: among the top-`considered`
+        # candidates by g + logits + sigma(q), visit the least-visited.
+        cn, cq = root_candidate_stats()
+        score = torch.where(cand_valid, candidate_scores(cq)[0], neg_inf)
+        order = torch.argsort(-score, dim=1, stable=True)
+        rank = torch.empty((b, m), dtype=torch.int32, device=dev).scatter_(1, order, slot_rank)
+        in_play = (rank < schedule[sim]) & cand_valid
+        # lexicographic (visits, rank) argmin; slots out of play are pushed
+        # past any reachable visit count (<= num_simulations < 2^20)
+        pick_key = torch.where(in_play, cn, 1 << 20) * m + rank
+        root_action = cand.gather(1, pick_key.argmin(dim=1, keepdim=True))[:, 0]
+
+        # ---- selection walk: the depth-0 edge is forced to root_action,
+        # interior edges follow the deterministic rule; stop at an unexpanded
+        # edge or a terminal child.
+        tables = _treewalk.node_tables(interior_scores(), child, node_done)
+        f_nxt, f_keep = _treewalk.forced_root_edge(root_action, child, node_done)
+        sel_depth, path_n, path_a = _treewalk.walk_paths(
+            *tables, max_depth, forced_root=(root_action, f_nxt, f_keep)
+        )
+        last = (sel_depth - 1).clamp_min(0).to(torch.int64)[:, None]
+        exp_parent = path_n.gather(1, last)[:, 0].to(torch.int64)
+        exp_action = path_a.gather(1, last)[:, 0].to(torch.int64)
+        prev_child = child[bidx, exp_parent, exp_action]
+        already = prev_child >= 0
+
+        # ---- expansion: one exact env step per env.  The terminal outcome
+        # comes from the step's own areas, not from a second scoring flood.
+        new_states, step_info = _step.step_states(node_states[bidx, exp_parent], exp_action)
+        slot = sim + 1
+        new_logits, new_values, _ = masked_policy(new_states)
+        new_done = _state.game_ended(new_states)
+        win_black = torch.sign(
+            step_info.black_area.to(torch.float32) - step_info.white_area.to(torch.float32) - komi
+        )
+        outcome = torch.where(_state.turn(new_states) == 1, -win_black, win_black)
+        leaf_value = torch.where(new_done, outcome, new_values)
+
+        # Slot sim + 1 is new in this simulation, so an env that revisits a
+        # terminal child leaves it as it was made: zeros.
+        write = ~already
+        node_states[:, slot] = torch.where(write[:, None, None, None], new_states, 0)
+        node_done[:, slot] = write & new_done
+        node_value[:, slot] = torch.where(write, leaf_value, 0.0)
+        prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
+        child[bidx, exp_parent, exp_action] = torch.where(write, slot, prev_child)
+        # A revisited child is terminal, so its stored value is its exact
+        # outcome from its own mover's view: back that up again.
+        revisit_value = _treewalk.gather_node(node_value, prev_child.clamp_min(0))
+        leaf_value = torch.where(already, revisit_value, leaf_value)
+
+        # ---- backup along the path with a sign flip per ply: one batched
+        # scatter-add per array.  The (node, action) pairs of a path are
+        # distinct; entries past the path point at (0, 0) and add 0, so the
+        # sums are exact and the same on every run.
+        on_path = depth_iota < sel_depth[:, None]
+        index = (bidx[:, None].expand(b, max_depth),
+                 torch.where(on_path, path_n, 0).to(torch.int64),
+                 torch.where(on_path, path_a, 0).to(torch.int64))
+        steps_up = sel_depth[:, None] - 1 - depth_iota
+        sign = torch.where(steps_up % 2 == 0, -1.0, 1.0)
+        visit.index_put_(index, on_path.to(torch.int32), accumulate=True)
+        wsum.index_put_(index, torch.where(on_path, sign * leaf_value[:, None], 0.0), accumulate=True)
+
+    # ---- outputs.
+    cn, cq = root_candidate_stats()
+    final_score, max_n = candidate_scores(cq)
+    final_score = torch.where(cand_valid & (cn > 0), final_score, neg_inf)
+    actions = cand.gather(1, final_score.argmax(dim=1, keepdim=True))[:, 0]
+
+    # Improved policy over the full action space: completedQ(a) = q(a) for
+    # visited root actions, the root's net value otherwise.
+    rn = visit[:, 0]
+    rq = torch.where(rn > 0, wsum[:, 0] / rn.clamp_min(1), root_value_net[:, None])
+    improved_logits = root_logits + _sigma(rq, max_n, c_visit, c_scale)
+    improved = torch.softmax(torch.where(valid_root, improved_logits, neg_inf), dim=-1)
+    # Root value: the visit-weighted mean of completed Q (the net's value
+    # with no visits).
+    total_n = rn.sum(dim=1)
+    root_q = torch.where(total_n > 0, wsum[:, 0].sum(dim=1) / total_n.clamp_min(1), root_value_net)
+    return GumbelMCTSResult(
+        actions=actions.to(torch.int32),
+        improved_policy=improved,
+        root_value=root_q,
+        root_visits=rn.clone(),
+        sampled_actions=cand.to(torch.int32),
+    )
+
+
+def make_gumbel_mcts_policy(net, num_simulations=32, max_considered=16, **kw):
+    """Adapter: ``policy_fn(generator, states) -> actions`` for
+    ``batch_env.rollout`` and ``evaluate.play_match``."""
+
+    def policy_fn(generator, states):
+        return run_gumbel_mcts(
+            generator, states, net,
+            num_simulations=num_simulations, max_considered=max_considered, **kw
+        ).actions
+
+    return policy_fn

@@ -1,8 +1,12 @@
-"""The flood kernels on a CUDA card: each against its plain version, on the
-rollout of its route, and on bad input.  Imports no JAX, so it runs on a machine without
+"""The port on a CUDA card: each flood kernel against its plain version, on the
+rollout of its route, and on bad input; the stateless step, the area score,
+the net and the search against the CPU plain path.  Imports no JAX, so it runs on a machine without
 it (``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``); every
 test skips where there is no card.
 """
+
+import contextlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,11 +15,14 @@ import torch
 from gymgo_tpu_torch.config import EnvConfig
 from gymgo_tpu_torch.core import flood as tflood
 from gymgo_tpu_torch.core.flood import bundle_flood_plain, minmax_flood_plain
+from gymgo_tpu_torch.core import score as tscore
+from gymgo_tpu_torch.core import step as tstep
 from gymgo_tpu_torch.core.state import batch_init_state
 from gymgo_tpu_torch.env.batch_env import rollout
 from gymgo_tpu_torch.ops import bundle_flood as tbundle
 from gymgo_tpu_torch.ops import minmax_flood as tminmax
-from torch_boards import adversarial_boards, component_boards, random_boards
+from torch_boards import (adversarial_boards, component_boards, midgame_states, random_boards,
+                          states_on_boards)
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +137,126 @@ def test_minmax_kernel_rejects_bad_input(cuda_device):
         tminmax.minmax_flood_cuda(big, big)
     with pytest.raises(ValueError, match="CUDA"):
         tminmax.minmax_flood_cuda(ok, ok.cpu())
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+@pytest.mark.parametrize("n", [5, 9, 19])
+def test_stateless_step_matches_cpu_without_a_host_sync(n, cuda_device):
+    # hand-made boards (groups without a liberty among them) and positions of
+    # real games: the CPU's capture flood against the card's classification
+    states = torch.from_numpy(np.concatenate(
+        [states_on_boards(n, 7)]
+        + [midgame_states(n, 128, plies, plies) for plies in (n, n * n // 2, n * n, 2 * n * n)]))
+    rng = np.random.default_rng(n)
+    b = states.shape[0]
+    empty = (states[:, 3] == 0).reshape(b, -1).numpy()
+    # mostly legal moves (captures and ko among them), some passes, some
+    # arbitrary cells (occupied, suicide), some out of range
+    acts = np.array([rng.choice(np.flatnonzero(e)) if e.any() else n * n for e in empty])
+    u = rng.random(b)
+    acts = np.where(u < 0.1, n * n, np.where(u > 0.9, rng.integers(-1, n * n + 3, b), acts))
+    acts = torch.from_numpy(acts.astype(np.int32))
+    want_states, want_info = tstep.step_states(states, acts)
+    on_card, acts_card = states.to(cuda_device), acts.to(cuda_device)
+    tstep.step_states(on_card, acts_card)  # build the kernel outside the sync check
+    launches = tbundle.BUNDLE_FLOOD.launches
+    with _no_host_sync():
+        got_states, got_info = tstep.step_states(on_card, acts_card)
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 2  # the board before the move and after it
+    assert torch.equal(got_states.cpu(), want_states)
+    for name in want_info._fields:
+        assert torch.equal(getattr(got_info, name).cpu(), getattr(want_info, name)), name
+    assert int(want_info.num_captured.sum()) > 0 and want_info.invalid_action.any()
+
+
+@pytest.mark.parametrize("n", [5, 9, 19, 22])
+def test_areas_match_cpu_without_a_host_sync(n, cuda_device):
+    states = torch.from_numpy(states_on_boards(n, 6))
+    on_card = states.to(cuda_device)
+    tscore.areas(on_card)  # build the kernel outside the sync check
+    launches = tbundle.BUNDLE_FLOOD.launches
+    with _no_host_sync():
+        got_areas = tscore.areas(on_card)
+        got_sign = tscore.winning(on_card, 0.5)
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 2
+    for got, want in zip(got_areas, tscore.areas(states)):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_sign.cpu(), tscore.winning(states, 0.5))
+    # a board too large for the bundle word takes the plain flood
+    big = torch.zeros((2, 6, 25, 25), dtype=torch.int8, device=cuda_device)
+    big[0, 0, 3, 3] = 1
+    black_area, white_area = tscore.areas(big)
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 2
+    assert black_area.tolist() == [625, 0] and white_area.tolist() == [0, 0]
+    # the score is the same function on the minmax route
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        for got, want in zip(tscore.areas(on_card), tscore.areas(states)):
+            assert torch.equal(got.cpu(), want)
+    finally:
+        tflood.set_flood_route(previous)
+
+
+_ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
+
+
+@pytest.fixture
+def float32_without_tf32():
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("name,batch", [("az9_r5_iter100", 64), ("az19_big128x6_iter830", 16)])
+def test_float32_net_on_the_card_matches_cpu(name, batch, cuda_device, float32_without_tf32):
+    from gymgo_tpu_torch.convert import load_aznet_npz
+
+    path = _ARTIFACTS / f"{name}_params.npz"
+    cpu = load_aznet_npz(path, device="cpu", dtype=torch.float32)
+    card = load_aznet_npz(path, dtype=torch.float32)  # cuda by default
+    assert next(card.parameters()).is_cuda
+    n = cpu.config.board_size
+    states = torch.from_numpy(midgame_states(n, batch, n * n // 2, 3))
+    with torch.no_grad():
+        want, got = cpu(states), card(states.to(cuda_device))
+    # float32 on both sides, TF32 off: only the order of the sums differs
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-4)
+    bf16 = load_aznet_npz(path, dtype=torch.bfloat16)
+    with torch.no_grad():
+        logits, value = bf16(states.to(cuda_device))
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all() and torch.isfinite(value).all()
+    assert (logits.cpu() - want[0]).abs().max() < 0.05 * (want[0].max() - want[0].min())
+
+
+def test_search_on_the_card_matches_cpu_given_the_noise(cuda_device, float32_without_tf32):
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
+
+    path = _ARTIFACTS / "az9_r5_iter100_params.npz"
+    cpu = load_aznet_npz(path, device="cpu", dtype=torch.float32)
+    card = load_aznet_npz(path, device=cuda_device, dtype=torch.float32)
+    states = torch.from_numpy(midgame_states(9, 32, 30, 4))
+    noise = torch.from_numpy(np.random.default_rng(0).gumbel(size=(32, 82)).astype(np.float32))
+    want = run_gumbel_mcts(None, states, cpu, num_simulations=16, max_considered=8, gumbel=noise)
+    launches = tbundle.BUNDLE_FLOOD.launches
+    got = run_gumbel_mcts(None, states.to(cuda_device), card, num_simulations=16, max_considered=8,
+                          gumbel=noise.to(cuda_device))
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 32  # a seed and a step per simulation
+    assert torch.equal(got.sampled_actions.cpu(), want.sampled_actions)
+    # a float near-tie may flip a visit in an env: at most one of the 32
+    differ = (got.actions.cpu() != want.actions) | (got.root_visits.cpu() != want.root_visits).any(1)
+    assert int(differ.sum()) <= 1
+    same = ~differ
+    torch.testing.assert_close(got.improved_policy.cpu()[same], want.improved_policy[same], rtol=0, atol=1e-4)

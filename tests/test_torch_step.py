@@ -15,7 +15,9 @@ import torch
 
 from gymgo_tpu.core import step as jstep
 from gymgo_tpu_torch.convert import planes_to_torch
+from gymgo_tpu_torch.core import flood as tflood
 from gymgo_tpu_torch.core import step as tstep
+from torch_boards import states_on_boards
 
 _jit_step_states = jax.jit(jstep.step_states)
 _jit_step_planes = jax.jit(jstep.step_planes)
@@ -97,6 +99,38 @@ def test_step_states_and_step_planes_match_jax(n, b, opening, steps):
         assert totals[key] > 0, totals
     if n <= 7:
         assert totals["single_capture_blocked"] > 0, totals
+
+
+@pytest.mark.parametrize("route", ["bitpack", "unrolled"])
+@pytest.mark.parametrize("n", [5, 9, 19])
+def test_stateless_step_on_hand_made_boards_matches_jax_by_flood_and_by_classes(n, route):
+    """Boards no game reaches, where groups stand without a liberty: JAX's
+    stateless step removes them with the move.  So does the port, by its
+    capture flood (what CPU tensors take) and by the liberty classes of the
+    board before the move (what CUDA tensors take; called here on the CPU,
+    where the classification is the kernel's plain version)."""
+    states = states_on_boards(n, 11)
+    m = n * n
+    acts = _random_actions(np.random.default_rng(n), states)
+    js, ji = _jit_step_states(jnp.asarray(states), jnp.asarray(acts))
+    js = np.asarray(js)
+    previous = tflood.set_flood_route(route)
+    try:
+        ts, ti = tstep.step_states(torch.from_numpy(states), torch.from_numpy(acts))
+        black, white = torch.from_numpy(states[:, 0] != 0), torch.from_numpy(states[:, 1] != 0)
+        wtm = torch.from_numpy(states[:, 2] != 0)
+        killed = tstep._killed_by_classes(
+            black, white, torch.where(wtm, black, white), torch.from_numpy(acts).long().clamp(0, m - 1))
+    finally:
+        tflood.set_flood_route(previous)
+    np.testing.assert_array_equal(js, ts.numpy())
+    _assert_tuple_equal(ji, ti)
+    moved = ~np.asarray(ji.invalid_action) & ~np.asarray(ji.was_done) & (acts != m)
+    opp_before = np.where(states[:, 2] != 0, states[:, 0], states[:, 1]) != 0
+    opp_after = np.where(states[:, 2] != 0, js[:, 0], js[:, 1]) != 0
+    np.testing.assert_array_equal(killed.numpy()[moved], (opp_before & ~opp_after)[moved])
+    no_liberty_before = killed.numpy()[acts == m].any()
+    assert moved.sum() > 200 and int(np.asarray(ji.num_captured).sum()) > 0 and no_liberty_before
 
 
 def _scripted_ko_game(n=5):

@@ -82,3 +82,46 @@ def component_boards(n):
     a = np.stack([spiral, none, ~spiral, spiral, comb, none, ~comb, none, full, none, checks, checks, none])
     b = np.stack([none, spiral, none, ~spiral, none, comb, comb, none, none, full, ~checks, none, ~checks])
     return a, b
+
+
+def states_on_boards(n, seed):
+    """int8 ``(352, 6, n, n)`` states on the random, adversarial and component
+    boards (hand-made: some groups stand without a liberty): both colours to
+    move, some after a pass, the occupied cells invalid."""
+    planes = [random_boards(np.random.default_rng(seed), 333, n), adversarial_boards(n), component_boards(n)]
+    black, white = (np.concatenate(x) for x in zip(*planes))
+    states = np.zeros((len(black), 6, n, n), np.int8)
+    states[:, 0], states[:, 1] = black, white & ~black
+    states[1::2, 2] = 1
+    states[:, 3] = states[:, 0] | states[:, 1]
+    states[::5, 4] = 1
+    return states
+
+
+def midgame_states(n, b, plies, seed):
+    """int8 ``(b, 6, n, n)`` states after ``plies`` uniform-random legal moves
+    of the port's CPU rollout (no auto-reset, so some games may be over)."""
+    import torch
+
+    from gymgo_tpu_torch.config import EnvConfig
+    from gymgo_tpu_torch.core.state import batch_init_state
+    from gymgo_tpu_torch.env.batch_env import rollout
+
+    cfg = EnvConfig(board_size=n, batch_size=b)
+    g = torch.Generator().manual_seed(seed)
+    return rollout(g, batch_init_state(b, n, device="cpu"), plies, cfg).final_states.numpy()
+
+
+def crafted_state(n, black=(), white=(), white_to_move=False, prev_passed=False, done=False):
+    """One int8 ``(6, n, n)`` state with stones at the given (row, col) cells;
+    the invalid plane marks the occupied cells (and every cell once done)."""
+    s = np.zeros((6, n, n), np.int8)
+    for r, c in black:
+        s[0, r, c] = 1
+    for r, c in white:
+        s[1, r, c] = 1
+    s[2] = white_to_move
+    s[3] = (s[0] | s[1]) | done
+    s[4] = prev_passed
+    s[5] = done
+    return s
