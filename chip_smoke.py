@@ -55,13 +55,39 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      the full search wrapped in ``with_pass_to_win`` against the uniform
      sampler, 128 games to the move cap of 243, which it must win at 0.85 or
      better by area; then 8 plies of the same at 19x19 with the 128x6 net,
-     B = 128, 4 opening moves.
+     B = 128, 4 opening moves;
+ 15. training at full width: ``params_to_ckpt``'s tree of the committed 19x19
+     128x6 iter-830 net (fresh AdamW, an empty replay of 65536 rows, 512 fresh
+     boards, iteration 830) resumed by ``gymgo_tpu_torch.train.Trainer`` for 2
+     iterations of the recipe that trained it (envs 512, Gumbel 32/16,
+     augment, value-grounded-only, lr 2e-4, train batch 1024, bfloat16), with
+     the window cut from 160 moves to 8 (the one cut, forced by the run's time
+     limit).  Checks: no invalid action, 8192 rows stored, every stored policy
+     a distribution over its row's valid moves, finite losses, AdamW step 2,
+     the parameters moved, and the bundle kernel launched exactly
+     2 x (8 moves x (32 simulations + the move) x 2 + 1) = 1058 times: each
+     expansion and each move is a stateless ``step_states`` (one launch
+     classifies the board before the move, one is the step's flood) and each
+     window ends in one ``winning`` of its final states; the min/max kernel
+     0 times.  Per iteration: self-play wall time, env-steps/s, ms per
+     simulation, host syncs per move, the learner step's ms by CUDA events;
+     then peak memory and a torch.profiler top-6 of one more learner step;
+ 16. the trainer against the CPU and against itself: (a) a B = 32, 4-move
+     Gumbel self-play window (8 simulations, 8 considered), float32, TF32
+     off, injected noise, on the card and on the CPU plain path; (b) one
+     float32 AdamW step at 64 rows of phase 15's replay on the card and on
+     the CPU (loss within 2e-5, gradients within 1e-2 of their largest entry,
+     parameters within 2 lr: the first AdamW step moves each by about
+     lr * sign(g)); (c) a 19x19 128x6, B = 64, 4-move run checkpointed after its
+     first iteration and its second iteration run again from the
+     checkpoint: env states, replay, actions and targets bit for bit, the
+     parameters after the learner step within a stated atol.
 
-Phases 12-14 are the play path; the launch counts are set to 0 before the
-search and before each match and read after.  The line before the nvidia-smi
-line is a JSON object with both kernels' numbers; the last line is
-``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero without
-printing a result when CUDA is unavailable.
+Phases 12-14 are the play path, 15 the training path; the launch counts are
+set to 0 before the search, each match and the training run and read after.
+The line before the nvidia-smi line is a JSON object with both kernels'
+numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
+exits non-zero without printing a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -73,6 +99,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -417,6 +444,214 @@ def play_path(dev, states, bundle_lib, minmax_lib):
             minmax_counts)
 
 
+def train_path(dev, states, bundle_lib, minmax_lib, workdir):
+    """Phases 15-16: the trainer at full width from the committed 19x19 net,
+    then against the CPU and against its own checkpoint.  ``states`` are
+    phase 4's steady-state boards.  Returns the training run's launch counts
+    ``(of the bundle kernel, of the min/max kernel)``."""
+    from gymgo_tpu_torch.config import EnvConfig
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core.actions import gumbel_noise
+    from gymgo_tpu_torch.models.az_net import AZNet
+    from gymgo_tpu_torch.params_to_ckpt import tree_from_params
+    from gymgo_tpu_torch.rl.learner import make_train_state, train_step
+    from gymgo_tpu_torch.rl.selfplay import selfplay_gumbel_rollout
+    from gymgo_tpu_torch.train import Trainer, build_parser
+    from gymgo_tpu_torch.utils import checkpoint as ckpt
+
+    N19, CH, BL = 19, 128, 6
+    ENVS, STEPS, SIMS, CONSIDERED, BATCH, CAP, ITERS = 512, 8, 32, 16, 1024, 65536, 2
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    def recipe(envs, steps, capacity, *extra):
+        return build_parser().parse_args([
+            "--board", str(N19), "--channels", str(CH), "--blocks", str(BL), "--envs", str(envs), "--rollout-steps",
+            str(steps), "--gumbel-sims", str(SIMS), "--gumbel-m", str(CONSIDERED), "--augment",
+            "--value-grounded-only", "--lr", "2e-4", "--train-batch", str(BATCH), "--replay-capacity",
+            str(capacity), "--seed", str(SEED), *extra])
+
+    def log(*args, **kw):
+        print("[15 train]", *args, flush=True)
+
+    # 15. training at full width
+    t0 = time.perf_counter()
+    tree = tree_from_params(NET_19, N19, ENVS, CH, BL, 830, lr=2e-4, replay_capacity=CAP, seed=SEED, device=dev)
+    path = workdir / "az19_iter830.npz"
+    ckpt.save_npz(path, tree)
+    trainer = Trainer(recipe(ENVS, STEPS, CAP, "--iters", str(830 + ITERS), "--resume", str(path)),
+                      device=dev, log=log)
+    setup_s = time.perf_counter() - t0
+    start_params = {k: v.detach().cpu().clone() for k, v in tree["params"].items()}
+    records = []
+    selfplay, learn = trainer.selfplay, trainer.learn
+
+    def timed_selfplay():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with host_syncs() as caught:
+            batch = selfplay()
+        torch.cuda.synchronize()
+        records.append({"selfplay_s": time.perf_counter() - t, "syncs": len(caught),
+                        "invalid": int(batch.invalid.sum()), "games": int(batch.done.sum())})
+        return batch
+
+    def timed_learn():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = learn()
+        end.record()
+        torch.cuda.synchronize()
+        records[-1]["learner_ms"] = start.elapsed_time(end)
+        records[-1]["metrics"] = {k: float(v) for k, v in metrics.items()}
+        return metrics
+
+    trainer.selfplay, trainer.learn = timed_selfplay, timed_learn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bundle_lib.launches = minmax_lib.launches = 0
+    trainer.run()
+    torch.cuda.synchronize()
+    train_launches, train_minmax = bundle_lib.launches, minmax_lib.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    expected = ITERS * (STEPS * (SIMS + 1) * 2 + 1)
+    buf = trainer.buf_state
+    rows = ITERS * ENVS * STEPS
+    if any(r["invalid"] for r in records):
+        fail(f"training: invalid actions in self-play: {[r['invalid'] for r in records]}")
+    if int(buf.filled) != rows or int(buf.cursor) != rows:
+        fail(f"training: replay filled {int(buf.filled)}, cursor {int(buf.cursor)}, expected {rows}")
+    obs, pi = buf.obs[:rows], buf.policy[:rows]
+    valid = torch.cat([obs[:, 3].reshape(rows, -1) == 0, torch.ones((rows, 1), dtype=torch.bool, device=dev)], 1)
+    if not (bool(((pi.sum(1) - 1).abs() < 1e-4).all()) and bool((pi[~valid] == 0).all())):
+        fail("training: a stored policy is not a distribution over its row's valid moves")
+    if not all(math.isfinite(x) for r in records for x in r["metrics"].values()):
+        fail(f"training: a loss is not finite: {[r['metrics'] for r in records]}")
+    opt_steps = {float(st["step"]) for st in trainer.train_state.optimizer.state.values()}
+    if trainer.train_state.step != ITERS or opt_steps != {float(ITERS)} or trainer.iteration != 830 + ITERS:
+        fail(f"training: step {trainer.train_state.step}, AdamW steps {opt_steps}, iteration {trainer.iteration}")
+    moved = max(float((p.detach().cpu() - start_params[k]).abs().max()) for k, p in trainer.net.named_parameters())
+    if not moved > 0:
+        fail("training: the parameters did not move")
+    if train_launches != expected or train_minmax != 0:
+        fail(f"training: {train_launches} bundle launches (expected {expected}), {train_minmax} min/max launches")
+    for i, r in enumerate(records):
+        print(f"[15 train] iteration {830 + i}: self-play {r['selfplay_s']:.3f} s, "
+              f"{ENVS * STEPS / r['selfplay_s']:.1f} env-steps/s, {1e3 * r['selfplay_s'] / (STEPS * SIMS):.3f} ms "
+              f"per simulation at B={ENVS}, {r['syncs'] / STEPS:.2f} host syncs per move, {r['games']} games ended; "
+              f"learner step {r['learner_ms']:.3f} ms (CUDA events: sample, forward, backward, AdamW at {BATCH} "
+              f"rows, bfloat16 compute, and the acting copy's refresh); {json.dumps(r['metrics'])}", flush=True)
+    prof_wall_us, prof_rows = device_profile(learn)
+    print(f"[15 train] {N19}x{N19} {CH}x{BL}, {ITERS} iterations of envs {ENVS}, {STEPS} moves, Gumbel {SIMS}/{CONSIDERED}: "
+          f"set-up {setup_s:.2f} s; replay {rows} rows; max |param change| {moved:.3g}; bundle launches "
+          f"{train_launches} (= {ITERS} x ({STEPS} x ({SIMS} + 1) x 2 + 1)), min/max {train_minmax}; "
+          f"max_memory_allocated {peak_gb:.2f} GiB; one more learner step under the profiler: "
+          f"{prof_wall_us / 1e3:.3f} ms wall, device {sum(r[0] for r in prof_rows) / 1e3:.3f} ms in "
+          f"{sum(r[1] for r in prof_rows)} launches; top: "
+          f"{'; '.join(f'{name[:48]} {us:.1f} us x{c:.1f}' for us, c, name in prof_rows[:6])}", flush=True)
+
+    # 16a. a self-play window on the card and on the CPU
+    B_A, STEPS_A, SIMS_A = 32, 4, 8
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    net_card = load_aznet_npz(NET_19, device=dev, dtype=torch.float32)
+    net_cpu = load_aznet_npz(NET_19, device="cpu", dtype=torch.float32)
+    cfg = EnvConfig(board_size=N19, batch_size=B_A, auto_reset=True)
+    noise = gumbel_noise(torch.Generator(device=dev).manual_seed(SEED + 16), (STEPS_A, B_A, N19 * N19 + 1), dev)
+    start = states[:B_A].clone()
+    kw = dict(num_simulations=SIMS_A, max_considered=SIMS_A, pass_min_stones=N19 * N19 // 2)
+    f_card, b_card = selfplay_gumbel_rollout(None, start, net_card, STEPS_A, cfg, gumbel=noise, **kw)
+    f_cpu, b_cpu = selfplay_gumbel_rollout(None, start.cpu(), net_cpu, STEPS_A, cfg, gumbel=noise.cpu(), **kw)
+    env_differs = (f_card.cpu() != f_cpu).flatten(1).any(1)
+    for name in ("actions", "obs", "done", "value_target", "grounded", "mask"):
+        x, y = getattr(b_card, name).cpu(), getattr(b_cpu, name)
+        env_differs |= (x != y).reshape(STEPS_A, B_A, -1).any(-1).any(0)
+    differ = int(env_differs.sum())
+    if differ > 1:
+        fail(f"self-play window: {differ} of {B_A} envs differ between the card and the CPU")
+    same = ~env_differs
+    pi_err = float((b_card.policy_target.cpu()[:, same] - b_cpu.policy_target[:, same]).abs().max())
+    print(f"[16 card vs CPU] self-play window B={B_A}, {STEPS_A} moves, Gumbel {SIMS_A}/{SIMS_A}, float32 (TF32 "
+          f"off), injected noise: actions, obs, done, value targets and final states differ on {differ} of {B_A} "
+          f"envs (at most 1 allowed: a float near-tie); max |diff| policy target {pi_err:.3g} on the others; "
+          f"{int(b_card.done.sum())} games ended", flush=True)
+
+    # 16b. one float32 learner step on the card and on the CPU.  The gradients
+    # agree to rounding, each tensor's relative to its largest entry (1.34e-3
+    # seen on the H100; the worst tensor is named).  AdamW's
+    # first step moves a parameter by about lr * sign(g), so where a gradient
+    # is near 0 rounding can move the card's and the CPU's copy up to 2 lr
+    # apart: the parameters are held to 2 lr, and the entries over 2e-5 are
+    # counted.
+    ROWS_B, LR_B, LOSS_ATOL, GRAD_RTOL = 64, 2e-4, 2e-5, 1e-2
+    idx = torch.arange(ROWS_B, device=dev) * 97 % rows
+    batch = [t[idx] for t in (buf.obs, buf.policy, buf.value, buf.mask, buf.vmask)]
+    sd = {k: torch.as_tensor(v) for k, v in tree["params"].items()}
+    steps_b = []
+    for device in (dev, torch.device("cpu")):
+        net = AZNet(net_card.config, torch.float32)
+        net.load_state_dict(sd)
+        ts, m = train_step(make_train_state(net.to(device), learning_rate=LR_B), [t.to(device) for t in batch])
+        steps_b.append((list(ts.net.parameters()), float(m["loss"])))
+    (p_card, loss_card), (p_cpu, loss_cpu) = steps_b
+    pairs = [(p.detach().cpu(), q.detach()) for p, q in zip(p_card, p_cpu)]
+    names = [name for name, _ in net.named_parameters()]
+    grad_errs = {name: float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max().clamp_min(1e-30))
+                 for name, p, q in zip(names, p_card, p_cpu)}
+    worst = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[worst]
+    param_err = max(float((p - q).abs().max()) for p, q in pairs)
+    over = sum(int(((p - q).abs() > 2e-5).sum()) for p, q in pairs)
+    entries = sum(q.numel() for _, q in pairs)
+    print(f"[16 card vs CPU] one AdamW step (lr {LR_B}), {ROWS_B} rows, float32 (TF32 off): loss {loss_card:.7f} "
+          f"card, {loss_cpu:.7f} CPU; gradients max |diff| / max |g| per tensor {grad_err:.3g} ({worst}); "
+          f"parameters max "
+          f"|diff| {param_err:.3g}, {over} of {entries} entries over 2e-05", flush=True)
+    if abs(loss_card - loss_cpu) > LOSS_ATOL or grad_err > GRAD_RTOL or param_err > 2 * LR_B:
+        fail(f"learner step: card and CPU differ by {abs(loss_card - loss_cpu):.3g} (loss; atol {LOSS_ATOL}), "
+             f"{grad_err:.3g} (gradients; relative {GRAD_RTOL}), {param_err:.3g} (parameters; atol {2 * LR_B})")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # 16c. a checkpoint after the first iteration, the second run again from it
+    ENVS_C, STEPS_C, CAP_C = 64, 4, 4096
+    base = workdir / "small830.npz"
+    ckpt.save_npz(base, tree_from_params(NET_19, N19, ENVS_C, CH, BL, 830, lr=2e-4, replay_capacity=CAP_C,
+                                         seed=SEED, device=dev))
+    cut = workdir / "small831.npz"
+
+    def second_iteration(trainer):
+        """Run iteration 831; returns its self-play window."""
+        windows = []
+        selfplay = trainer.selfplay
+
+        def recorded():
+            windows.append(selfplay())
+            return windows[-1]
+
+        trainer.selfplay = recorded
+        trainer.run_iteration(831)
+        return windows[0]
+
+    quiet = lambda *a, **k: None
+    whole = Trainer(recipe(ENVS_C, STEPS_C, CAP_C, "--iters", "832", "--resume", str(base)), device=dev, log=quiet)
+    whole.run_iteration(830)
+    ckpt.save_npz(cut, whole.tree())
+    win_a = second_iteration(whole)
+    again = Trainer(recipe(ENVS_C, STEPS_C, CAP_C, "--iters", "832", "--resume", str(cut)), device=dev, log=quiet)
+    win_b = second_iteration(again)
+    exact = {"env states": torch.equal(whole.states, again.states),
+             "replay": all(torch.equal(x, y) for x, y in zip(whole.buf_state, again.buf_state)),
+             "generator": torch.equal(whole.generator.get_state(), again.generator.get_state())}
+    for name in ("actions", "obs", "policy_target", "value_target", "mask", "grounded"):
+        exact[name] = torch.equal(getattr(win_a, name), getattr(win_b, name))
+    param_diff = max(float((p - q).detach().abs().max()) for p, q in zip(whole.net.parameters(), again.net.parameters()))
+    RESUME_ATOL = 1e-6  # cuDNN may pick backward algorithms that add in another order
+    print(f"[16 resume] {N19}x{N19} {CH}x{BL}, B={ENVS_C}, {STEPS_C} moves: the second iteration again from the checkpoint "
+          f"of the first: bit for bit {json.dumps(exact)}; parameters after its learner step max |diff| "
+          f"{param_diff:.3g} ({'bit for bit' if param_diff == 0 else f'within atol {RESUME_ATOL}'})", flush=True)
+    if not all(exact.values()) or param_diff > RESUME_ATOL:
+        fail(f"resume: {exact}, parameters {param_diff}")
+    return train_launches, train_minmax
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -616,6 +851,9 @@ def main() -> int:
           f"({(2 + 4) * B * N * N} bytes at 3.35 TB/s)", flush=True)
 
     play_launches, play_minmax_launches = play_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches, train_minmax_launches = train_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD,
+                                                           Path(workdir))
 
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
@@ -624,6 +862,7 @@ def main() -> int:
         "replaces": "gymgo_tpu/ops/pallas_flood.py:163",
         "launches": launches,
         "launches_play_path": play_launches,
+        "launches_train_path": train_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,
@@ -637,6 +876,7 @@ def main() -> int:
         "replaces": "gymgo_tpu/ops/pallas_flood.py:33",
         "launches": mm_launches,
         "launches_play_path": play_minmax_launches,
+        "launches_train_path": train_minmax_launches,
         "max_abs_err": mm_err,
         "ms": min(mm_ms, mm_ms_2),
         "plain_ms": mm_plain_ms,

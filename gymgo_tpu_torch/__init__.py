@@ -7,7 +7,9 @@ step runs hand CUDA kernels: the bundle flood (``csrc/bundle_flood.cu``) on the
 default route, the min/max liberty flood (``csrc/minmax_flood.cu``) on the
 minmax route (``GYMGO_FLOOD``, as in the JAX package).  On top of the env:
 the AZNet (``models``) with a loader of the JAX package's checkpoints
-(``convert``), Gumbel search and match play (``rl``).  Entry points run
+(``convert``), search, match play, self-play, replay and the learner
+(``rl``), and the training loop (``train``, ``python -m
+gymgo_tpu_torch.train``).  Entry points run
 on ``cuda`` unless the caller passes another device, and raise when there is no
 card.  This package imports nothing of JAX or of ``gymgo_tpu``.
 """

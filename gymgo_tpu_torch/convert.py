@@ -7,7 +7,9 @@ they convert by a copy.  A ``PlanesState`` converts field by field, its carried
 
 An ``AZNet`` checkpoint of the JAX package (a flax parameter tree, or a
 committed ``artifacts/*_params.npz`` file) becomes a ``state_dict`` of the
-port's ``AZNet``; the file is read with numpy alone.
+port's ``AZNet``, and a whole ``train.py`` checkpoint of the JAX package the
+port's trainer tree (``trainer_tree_from_jax_npz``); the files are read with
+numpy alone.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from gymgo_tpu_torch.core.state import resolve_device
 from gymgo_tpu_torch.core.step import PlanesState
 from gymgo_tpu_torch.models.az_net import AZNet, AZNetConfig
+from gymgo_tpu_torch.rl.replay import ReplayState
 
 __all__ = [
     "states_to_torch",
@@ -31,6 +34,7 @@ __all__ = [
     "aznet_config_from_flax",
     "read_flax_npz",
     "load_aznet_npz",
+    "trainer_tree_from_jax_npz",
 ]
 
 _PLANE_DTYPES = {
@@ -207,3 +211,67 @@ def load_aznet_npz(path, device=None, dtype=torch.bfloat16) -> AZNet:
     except (KeyError, RuntimeError) as e:
         raise ValueError(f"{path}: parameters do not fit {config}: {e}") from e
     return net.to(device).eval().requires_grad_(False)
+
+
+
+def _numpy_state_dict(tree, config: AZNetConfig) -> dict:
+    return {k: v.numpy() for k, v in aznet_state_dict_from_flax(tree, config).items()}
+
+
+def trainer_tree_from_jax_npz(path) -> dict:
+    """A checkpoint of the JAX package's ``train.py`` as the port's trainer
+    tree (``gymgo_tpu_torch.train.trainer_tree``: numpy arrays, no
+    ``generator`` entry), read with numpy alone.
+
+    * ``params`` and ``target_params`` (a file without the latter gets the
+      online parameters) go through ``aznet_state_dict_from_flax``.
+    * ``opt_state`` is optax.adamw's ``(ScaleByAdamState(count, mu, nu),
+      EmptyState(), EmptyState())``, whose treedef text no literal parser
+      reads.  Its leaves are ``count``, then ``mu`` and ``nu``, each in the
+      parameters' sorted leaf order; ``mu`` and ``nu`` take exactly the
+      parameters' permutations (HWIO to OIHW, transposes, the (h, w, c) rows).
+    * ``buf`` holds the 7 ``ReplayState`` leaves in field order; a file of 6
+      (no ``vmask``) gets ``vmask = mask``, as the JAX package restores it.
+    * ``key`` (a threefry key) has no counterpart in a torch generator and is
+      dropped: the trainer seeds its generator instead."""
+    params = read_flax_npz(path, "params")
+    config = aznet_config_from_flax(params, torch.float32)
+    paths = _leaf_paths(params)
+    k = len(paths)
+
+    def as_tree(leaves):
+        tree = {}
+        for leaf_path, leaf in zip(paths, leaves):
+            node = tree
+            for key in leaf_path[:-1]:
+                node = node.setdefault(key, {})
+            node[leaf_path[-1]] = leaf
+        return tree
+
+    with np.load(path) as data:
+        n_opt = int(data["__len__opt_state"])
+        if n_opt != 1 + 2 * k:
+            raise ValueError(f"{path}: {n_opt} opt_state leaves; optax.adamw over {k} parameters has {1 + 2 * k}")
+        opt = [data[f"opt_state::{i}"] for i in range(n_opt)]
+        n_buf = int(data["__len__buf"])
+        buf = [data[f"buf::{i}"] for i in range(n_buf)]
+        if n_buf == 6:
+            buf.insert(4, buf[3])  # vmask := mask
+        elif n_buf != 7:
+            raise ValueError(f"{path}: a replay of {n_buf} leaves; expected 7 (or 6 without vmask)")
+        rest = {name: data[f"{name}::0"] for name in ("step", "env_states", "iteration")}
+        has_target = "__def__target_params" in data.files
+    target = read_flax_npz(path, "target_params") if has_target else params
+    return {
+        "params": _numpy_state_dict(params, config),
+        "opt_state": {
+            "step": np.asarray(opt[0], np.float32),
+            "exp_avg": _numpy_state_dict(as_tree(opt[1:1 + k]), config),
+            "exp_avg_sq": _numpy_state_dict(as_tree(opt[1 + k:]), config),
+        },
+        "step": np.asarray(rest["step"], np.int64),
+        "buf": dict(zip(ReplayState._fields, buf)),
+        "env_states": rest["env_states"],
+        "iteration": np.asarray(rest["iteration"], np.int64),
+        "target_params": _numpy_state_dict(target, config),
+    }

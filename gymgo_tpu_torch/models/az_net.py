@@ -13,12 +13,14 @@ Where it differs from the flax module, and why the numbers still agree:
   the rows of the two dense kernels that follow a flatten, once, so no
   activation is permuted at run time.
 * GroupNorm's epsilon is flax's 1e-6, not PyTorch's default 1e-5.
-* ``dtype``.  The flax module keeps float32 parameters and casts them at every
-  call; this module keeps its parameters in ``dtype`` (the same rounded
-  values), computes GroupNorm's statistics in float32 as PyTorch does for
-  bfloat16 inputs, and keeps the last dense layer in float32 as flax does.
-  float32 agrees with flax to rounding; bfloat16 rounds at other places than
-  XLA and is not bit-equal.
+* ``dtype``.  Like the flax module, every layer computes in ``config.dtype``
+  from parameters cast at the call, so a module can hold float32 master
+  parameters for training (``init_params``, ``AZNet(config, torch.float32)``)
+  and compute in bfloat16.  A serving module keeps its parameters in
+  ``dtype`` (the same rounded values; the casts are then no-ops).  GroupNorm's
+  statistics are computed in float32 as PyTorch does for bfloat16 inputs, and
+  the last dense layer stays float32 as in flax.  float32 agrees with flax to
+  rounding; bfloat16 rounds at other places than XLA and is not bit-equal.
 
 The convolutions and dense layers are PyTorch's: the JAX package computes them
 with XLA outside any kernel of its own.  Tensor-parallel ``param_shardings``
@@ -35,10 +37,11 @@ from torch import nn
 
 from gymgo_tpu_torch import govars
 
-__all__ = ["AZNetConfig", "ResBlock", "AZNet"]
+__all__ = ["AZNetConfig", "ResBlock", "AZNet", "init_params", "acting_copy", "refresh_"]
 
 _GROUPS = 8
 _GN_EPS = 1e-6  # flax.linen.GroupNorm's default
+_TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +58,20 @@ def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
+def _conv(conv: nn.Conv2d, x):
+    """``conv`` in the dtype of ``x`` (its parameters cast at the call)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, padding=conv.padding)
+
+
+def _norm(norm: nn.GroupNorm, x):
+    return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype), norm.eps)
+
+
+def _dense(dense: nn.Linear, x):
+    return F.linear(x, dense.weight.to(x.dtype), dense.bias.to(x.dtype))
+
+
 class ResBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -64,17 +81,20 @@ class ResBlock(nn.Module):
         self.norm_1 = nn.GroupNorm(_GROUPS, channels, eps=_GN_EPS)
 
     def forward(self, x):
-        h = F.relu(self.norm_0(self.conv_0(x)))
-        h = self.norm_1(self.conv_1(h))
+        h = F.relu(_norm(self.norm_0, _conv(self.conv_0, x)))
+        h = _norm(self.norm_1, _conv(self.conv_1, h))
         return F.relu(x + h)
 
 
 class AZNet(nn.Module):
     """Input: int8/float states ``(B, 6, N, N)``; output: ``(policy_logits
     float32 (B, N*N+1), value float32 (B,))``, the value from the view of the
-    player to move in a canonical state."""
+    player to move in a canonical state.
 
-    def __init__(self, config: AZNetConfig):
+    Parameters are held in ``param_dtype`` (default ``config.dtype``: a
+    serving module); the last dense layer's in float32."""
+
+    def __init__(self, config: AZNetConfig, param_dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
         n, c = config.board_size, config.channels
@@ -86,17 +106,54 @@ class AZNet(nn.Module):
         self.value_conv = nn.Conv2d(c, config.value_channels, 1)
         self.value_hidden = nn.Linear(n * n * config.value_channels, c)
         self.value_out = nn.Linear(c, 1)
-        self.to(config.dtype)
+        self.to(param_dtype or config.dtype)
         self.value_out.to(torch.float32)
 
     def forward(self, states: torch.Tensor):
         x = states.to(self.config.dtype)
-        x = F.relu(self.stem_norm(self.stem(x)))
+        x = F.relu(_norm(self.stem_norm, _conv(self.stem, x)))
         for block in self.blocks:
             x = block(x)
-        p = F.relu(self.policy_conv(x)).flatten(1)
-        policy_logits = self.policy_out(p)
-        v = F.relu(self.value_conv(x)).flatten(1)
-        v = F.relu(self.value_hidden(v))
-        value = torch.tanh(self.value_out(v.to(torch.float32)))[:, 0]
+        p = F.relu(_conv(self.policy_conv, x)).flatten(1)
+        policy_logits = _dense(self.policy_out, p)
+        v = F.relu(_conv(self.value_conv, x)).flatten(1)
+        v = F.relu(_dense(self.value_hidden, v))
+        value = torch.tanh(_dense(self.value_out, v.to(torch.float32)))[:, 0]
         return policy_logits.to(torch.float32), value
+
+
+@torch.no_grad()
+def init_params(generator: torch.Generator, config: AZNetConfig) -> AZNet:
+    """A fresh ``AZNet`` with float32 parameters on ``generator``'s device,
+    drawn as flax draws them: every conv and dense kernel from ``lecun_normal``
+    (a normal truncated at two standard deviations, rescaled to variance
+    1 / fan_in, fan_in = kh * kw * in for a conv and ``in`` for a dense
+    layer), zero biases, GroupNorm scale 1 and bias 0."""
+    net = AZNet(config, torch.float32).to(generator.device)
+    for name, p in net.named_parameters():
+        if p.dim() > 1:
+            std = (1.0 / p[0].numel()) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+        elif "norm" in name and name.endswith("weight"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    return net
+
+
+@torch.no_grad()
+def refresh_(dst: AZNet, src: AZNet) -> AZNet:
+    """Copy ``src``'s parameters into ``dst`` in place, each rounded to
+    ``dst``'s dtype: the values flax computes with when it casts float32
+    parameters at the call."""
+    torch._foreach_copy_(list(dst.parameters()), list(src.parameters()))
+    return dst
+
+
+def acting_copy(net: AZNet) -> AZNet:
+    """A frozen eval-mode copy of ``net`` with its parameters in
+    ``config.dtype`` (self-play, evaluation, the frozen target network);
+    ``refresh_`` brings it up to date after an update."""
+    device = next(net.parameters()).device
+    copy = AZNet(net.config).to(device).eval().requires_grad_(False)
+    return refresh_(copy, net)

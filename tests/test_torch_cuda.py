@@ -260,3 +260,92 @@ def test_search_on_the_card_matches_cpu_given_the_noise(cuda_device, float32_wit
     assert int(differ.sum()) <= 1
     same = ~differ
     torch.testing.assert_close(got.improved_policy.cpu()[same], want.improved_policy[same], rtol=0, atol=1e-4)
+
+
+def test_puct_search_and_selfplay_on_the_card_match_cpu(cuda_device, float32_without_tf32):
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.rl.mcts import run_mcts
+    from gymgo_tpu_torch.rl.selfplay import selfplay_mcts_rollout
+
+    path = _ARTIFACTS / "az9_r5_iter100_params.npz"
+    cpu = load_aznet_npz(path, device="cpu", dtype=torch.float32)
+    card = load_aznet_npz(path, device=cuda_device, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    states = torch.from_numpy(midgame_states(9, 24, 30, 5))
+    dirichlet = torch.from_numpy(rng.dirichlet(np.full(82, 0.3), 24).astype(np.float32))
+    gumbel = torch.from_numpy(rng.gumbel(size=(24, 82)).astype(np.float32))
+    want = run_mcts(None, states, cpu, num_simulations=16, num_parallel=4, dirichlet=dirichlet, gumbel=gumbel)
+    got = run_mcts(None, states.to(cuda_device), card, num_simulations=16, num_parallel=4,
+                   dirichlet=dirichlet.to(cuda_device), gumbel=gumbel.to(cuda_device))
+    differ = (got.actions.cpu() != want.actions) | (got.root_visits.cpu() != want.root_visits).any(1)
+    assert int(differ.sum()) <= 1
+
+    cfg = EnvConfig(board_size=9, batch_size=24, auto_reset=True)
+    noise = (torch.from_numpy(rng.dirichlet(np.full(82, 0.3), (3, 24)).astype(np.float32)),
+             torch.from_numpy(rng.gumbel(size=(3, 24, 82)).astype(np.float32)))
+    fw, bw = selfplay_mcts_rollout(None, states, cpu, 3, cfg, num_simulations=8, tree_reuse="subtree",
+                                   dirichlet=noise[0], gumbel=noise[1])
+    fg, bg = selfplay_mcts_rollout(None, states.to(cuda_device), card, 3, cfg, num_simulations=8,
+                                   tree_reuse="subtree", dirichlet=noise[0].to(cuda_device),
+                                   gumbel=noise[1].to(cuda_device))
+    env_differs = (bg.actions.cpu() != bw.actions).any(0) | (fg.cpu() != fw).flatten(1).any(1)
+    assert int(env_differs.sum()) <= 1 and not bg.invalid.any()
+
+
+def test_replay_and_learner_step_on_the_card_match_cpu(cuda_device, float32_without_tf32):
+    from gymgo_tpu_torch.models.az_net import AZNetConfig, init_params
+    from gymgo_tpu_torch.rl.learner import make_train_state, train_step
+    from gymgo_tpu_torch.rl.replay import ReplayBuffer
+
+    rng = np.random.default_rng(2)
+    m = 80
+    obs = torch.from_numpy(midgame_states(9, m, 20, 6))
+    policy = torch.softmax(torch.from_numpy(rng.standard_normal((m, 82)).astype(np.float32)), 1)
+    value = torch.from_numpy(rng.choice([-1.0, 1.0], m).astype(np.float32))
+    mask = torch.from_numpy(rng.random(m) < 0.9)
+    out = []
+    for device in (torch.device("cpu"), cuda_device):
+        buf = ReplayBuffer(64, 9, device=device)
+        st = buf.init()
+        for rows in (slice(0, 40), slice(40, 80)):  # the second add wraps
+            st = buf.add(st, obs[rows].to(device), policy[rows].to(device), value[rows].to(device),
+                         mask[rows].to(device))
+        batch = buf.sample(st, None, 48, indices=torch.arange(48) * 5 % 64)
+        net = init_params(torch.Generator().manual_seed(0), AZNetConfig(board_size=9, channels=32, blocks=2,
+                                                                         dtype=torch.float32)).to(device)
+        ts, metrics = train_step(make_train_state(net, learning_rate=1e-3), batch)
+        out.append((st, batch, ts, float(metrics["loss"])))
+        assert buf.sample(st, torch.Generator(device=device).manual_seed(0), 8)[0].device.type == device.type
+    (st_c, batch_c, ts_c, loss_c), (st_g, batch_g, ts_g, loss_g) = out
+    for x, y in zip(st_c, st_g):
+        assert torch.equal(x, y.cpu())
+    for x, y in zip(batch_c, batch_g):
+        assert torch.equal(x, y.cpu())
+    assert abs(loss_c - loss_g) < 2e-5
+    for p, q in zip(ts_c.net.parameters(), ts_g.net.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=0, atol=2e-3)  # Adam's first step: ~lr sign(g)
+
+
+def test_trainer_resumes_bit_for_bit_on_the_card(cuda_device, tmp_path):
+    from gymgo_tpu_torch.train import Trainer, build_parser
+
+    flags = ["--board", "7", "--envs", "16", "--channels", "16", "--blocks", "1", "--rollout-steps", "4",
+             "--gumbel-sims", "8", "--gumbel-m", "4", "--augment", "--train-batch", "64",
+             "--replay-capacity", "96"]
+    quiet = lambda *a, **k: None
+    whole = Trainer(build_parser().parse_args(flags + ["--iters", "3"]), log=quiet)
+    assert whole.device.type == "cuda"
+    whole.run_iteration(0)
+    whole.run_iteration(1)
+    path = tmp_path / "cut.npz"
+    from gymgo_tpu_torch.utils.checkpoint import save_npz
+
+    save_npz(path, whole.tree())
+    whole.run_iteration(2)
+    again = Trainer(build_parser().parse_args(flags + ["--iters", "3", "--resume", str(path)]), log=quiet)
+    again.run()
+    assert torch.equal(whole.states, again.states)
+    for x, y in zip(whole.buf_state, again.buf_state):
+        assert torch.equal(x, y)
+    for p, q in zip(whole.net.parameters(), again.net.parameters()):
+        torch.testing.assert_close(q, p, rtol=0, atol=1e-6)

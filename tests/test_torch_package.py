@@ -33,7 +33,7 @@ def test_port_imports_no_jax_and_nothing_of_gymgo_tpu():
         [sys.executable, "-c", _CHECK], cwd=_REPO, capture_output=True, text=True, check=True,
     ).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 21, n_modules
+    assert n_modules >= 31, n_modules
     assert bad == "[]", bad
 
 
@@ -42,7 +42,9 @@ def test_every_module_is_found():
     for name in ("core.flood", "core.step", "core.actions", "core.score", "core.state",
                  "ops.bundle_flood", "ops.minmax_flood", "ops.cuda_lib", "env.batch_env",
                  "convert", "govars", "config", "core.transform", "models", "models.az_net", "rl",
-                 "rl.treewalk", "rl.gumbel_mcts", "rl.search", "rl.evaluate"):
+                 "rl.treewalk", "rl.gumbel_mcts", "rl.search", "rl.evaluate", "rl.mcts", "rl.selfplay",
+                 "rl.replay", "rl.learner", "models.surgery", "utils", "utils.checkpoint", "utils.profiling",
+                 "train", "params_to_ckpt"):
         assert f"gymgo_tpu_torch.{name}" in names
 
 
@@ -109,4 +111,4 @@ def test_sub_packages_ship_with_the_package():
     include = tomllib.loads((_REPO / "pyproject.toml").read_text())["tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(find_packages(where=str(_REPO), include=include))
     assert {"gymgo_tpu_torch", "gymgo_tpu_torch.core", "gymgo_tpu_torch.ops", "gymgo_tpu_torch.env",
-            "gymgo_tpu_torch.models", "gymgo_tpu_torch.rl"} <= found
+            "gymgo_tpu_torch.models", "gymgo_tpu_torch.rl", "gymgo_tpu_torch.utils"} <= found
