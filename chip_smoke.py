@@ -83,8 +83,30 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      checkpoint: env states, replay, actions and targets bit for bit, the
      parameters after the learner step within a stated atol.
 
-Phases 12-14 are the play path, 15 the training path; the launch counts are
-set to 0 before the search, each match and the training run and read after.
+ 17. ``gogame`` on the card: 200 moves of a 19x19 game drawn by
+     ``gogame.random_action`` from ``np.random.seed(0)``, each
+     ``next_state(..., device="cuda")`` equal to the same call on the CPU in
+     float64, bit for bit; ``children`` of the board reached (362 rows, plain
+     and canonical) and ``batch_next_states`` and ``batch_areas`` on 1,024 of
+     phase 4's boards, equal to the CPU; the bundle kernel's launches;
+ 18. ``GoEnv`` on the card: ``GoEnv(19, reward_method="heuristic",
+     backend="torch", device="cuda")`` plays 2 games of up to 400 moves with
+     its own ``uniform_random_action`` from a seeded ``np.random``, then 8
+     9x9 games to their end, every observation, reward, done and info equal
+     to ``backend="native"``'s and ``backend="torch", device="cpu"``'s fed
+     the same actions; ms per step on the card and native (median, min,
+     max); ``backend="auto"`` picks native;
+ 19. the benches: ``bench_torch.py`` at ``--batch`` 4096, 12288 and 49152,
+     and ``python -m gymgo_tpu_torch.benchmarks.mcts_bench --search gumbel
+     --channels 128 --blocks 6 --batch-sweep 128,256,512 --repeats 3``, as
+     subprocesses, their JSON line and table parsed.
+
+Phases 12-14 are the play path, 15 the training path, 17-18 the host surface;
+the launch counts are set to 0 before the search, each match, the training
+run, the ``gogame`` game and the ``GoEnv`` games, and read after.  After phase
+15, a replay of the recipe's size takes one add of more rows than its
+capacity (81,920 into 65,536): every slot must hold one whole row, the last
+65,536 in order.
 The line before the nvidia-smi line is a JSON object with both kernels'
 numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
 exits non-zero without printing a result when CUDA is unavailable.
@@ -105,11 +127,13 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SEED = 0
-ARTIFACTS = Path(__file__).resolve().parent / "artifacts"
+ROOT = Path(__file__).resolve().parent
+ARTIFACTS = ROOT / "artifacts"
 NET_19 = ARTIFACTS / "az19_big128x6_iter830_params.npz"
 NET_9 = ARTIFACTS / "az9_r5_iter100_params.npz"
 
@@ -549,6 +573,8 @@ def train_path(dev, states, bundle_lib, minmax_lib, workdir):
           f"{sum(r[1] for r in prof_rows)} launches; top: "
           f"{'; '.join(f'{name[:48]} {us:.1f} us x{c:.1f}' for us, c, name in prof_rows[:6])}", flush=True)
 
+    replay_overflow(dev, N19, ENVS * 160, CAP)
+
     # 16a. a self-play window on the card and on the CPU
     B_A, STEPS_A, SIMS_A = 32, 4, 8
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -650,6 +676,176 @@ def train_path(dev, states, bundle_lib, minmax_lib, workdir):
     if not all(exact.values()) or param_diff > RESUME_ATOL:
         fail(f"resume: {exact}, parameters {param_diff}")
     return train_launches, train_minmax
+
+
+def replay_overflow(dev, n, rows, capacity):
+    """One add of ``rows`` > ``capacity`` rows into an empty replay on the
+    card (the recipe's 512 envs x 160 moves into 65,536): every slot must hold
+    one whole row, its obs, policy, value and masks all of one row id, and
+    the rows must be the last ``capacity``, each at the slot it reached."""
+    from gymgo_tpu_torch.rl.replay import ReplayBuffer
+
+    ids = torch.arange(rows, device=dev)
+    obs = torch.zeros((rows, 6 * n * n), dtype=torch.int8, device=dev)
+    obs[:, :17] = ((ids[:, None] >> torch.arange(17, device=dev)) & 1).to(torch.int8)
+    policy = torch.zeros((rows, n * n + 1), device=dev)
+    policy[:, 0] = ids.to(torch.float32)
+    buf = ReplayBuffer(capacity, n, device=dev)
+    st = buf.add(buf.init(), obs.view(rows, 6, n, n), policy, ids.to(torch.float32), ids % 2 == 0, ids % 3 == 0)
+    row = st.value.to(torch.int64)
+    from_obs = (st.obs.view(capacity, -1)[:, :17].to(torch.int64) << torch.arange(17, device=dev)).sum(1)
+    whole = (torch.equal(st.policy[:, 0].to(torch.int64), row) and torch.equal(from_obs, row)
+             and torch.equal(st.mask, row % 2 == 0) and torch.equal(st.vmask, row % 3 == 0))
+    last = torch.equal(row[torch.arange(rows - capacity, rows, device=dev) % capacity],
+                       torch.arange(rows - capacity, rows, device=dev))
+    if not (whole and last and int(st.cursor) == rows % capacity and int(st.filled) == capacity):
+        fail(f"replay overflow: whole rows {whole}, the last {capacity} rows in place {last}, "
+             f"cursor {int(st.cursor)}, filled {int(st.filled)}")
+    print(f"[15 replay overflow] {rows} rows into a {capacity}-row replay on the card: every slot holds one "
+          f"whole row (obs, policy, value, masks), the last {capacity} rows each at the slot it reached", flush=True)
+
+
+def spread(ms):
+    return f"median {statistics.median(ms):.3f} min {min(ms):.3f} max {max(ms):.3f} ms"
+
+
+def gogame_path(dev, states, bundle_lib, minmax_lib):
+    """Phase 17: the numpy ``gogame`` on the card against the CPU, from a
+    19x19 game and phase 4's steady-state ``states``.  Returns the game's
+    launch counts ``(of the bundle kernel, of the min/max kernel)``."""
+    from gymgo_tpu_torch import gogame
+
+    MOVES = 200
+    t_phase = time.perf_counter()
+    np.random.seed(SEED)
+    state = gogame.init_state(19)
+    card_ms, cpu_ms = [], []
+    torch.cuda.synchronize()
+    bundle_lib.launches = minmax_lib.launches = 0
+    for t in range(MOVES):
+        a = gogame.random_action(state)
+        t0 = time.perf_counter()
+        card = gogame.next_state(state, a, device=dev)
+        card_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        cpu = gogame.next_state(state, a, device="cpu")
+        cpu_ms.append(1e3 * (time.perf_counter() - t0))
+        if not (card.dtype == cpu.dtype == np.float64 and np.array_equal(card, cpu)):
+            fail(f"gogame.next_state: the card and the CPU differ at move {t} (action {a})")
+        state = card
+        if gogame.game_ended(state):
+            fail(f"the 19x19 game ended at move {t}")
+    launches, minmax = bundle_lib.launches, minmax_lib.launches
+    if not launches > 0 or minmax != 0:
+        fail(f"gogame: {launches} bundle launches, {minmax} min/max launches in {MOVES} moves")
+    for canonical in (False, True):
+        kids = gogame.children(state, canonical, device=dev)
+        if kids.shape != (362, 6, 19, 19) or not np.array_equal(kids, gogame.children(state, canonical, device="cpu")):
+            fail(f"gogame.children (canonical={canonical}): the card and the CPU differ")
+    boards = states[:1024].cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(SEED)
+    actions = np.array([rng.choice(np.flatnonzero(v)) for v in gogame.batch_valid_moves(boards)])
+    batch = gogame.batch_next_states(boards, actions, device=dev)
+    if not np.array_equal(batch, gogame.batch_next_states(boards, actions, device="cpu")):
+        fail("gogame.batch_next_states: the card and the CPU differ on phase 4's boards")
+    for got, want in zip(gogame.batch_areas(batch, device=dev), gogame.batch_areas(batch, device="cpu")):
+        if not np.array_equal(got, want):
+            fail("gogame.batch_areas: the card and the CPU differ")
+    print(f"[17 gogame] 19x19, {MOVES} moves of gogame.random_action (np.random.seed({SEED})): next_state on the "
+          f"card == CPU in float64 at every move; children (362 rows, plain and canonical) and batch_next_states "
+          f"+ batch_areas on 1024 of phase 4's boards == CPU; next_state {spread(card_ms)} on the card, "
+          f"{spread(cpu_ms)} on the CPU; bundle launches in the game {launches} ({launches / MOVES:.1f} per move), "
+          f"min/max {minmax}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, minmax
+
+
+def go_env_path(dev, bundle_lib, minmax_lib):
+    """Phase 18: ``GoEnv`` with the torch backend on the card against the
+    native engine and the torch backend on the CPU, fed the same actions.
+    Returns the games' launch counts ``(of the bundle kernel, of the min/max
+    kernel)``."""
+    from gymgo_tpu_torch.env import GoEnv
+
+    t_phase = time.perf_counter()
+    if GoEnv(19).backend != "native":
+        fail("GoEnv's auto backend did not pick the native engine")
+
+    def play(size, games, cap, must_end):
+        envs = [GoEnv(size, reward_method="heuristic", backend="torch", device=dev),
+                GoEnv(size, reward_method="heuristic", backend="native"),
+                GoEnv(size, reward_method="heuristic", backend="torch", device="cpu")]
+        if [e.backend for e in envs] != ["torch", "native", "torch"] or envs[0].device.type != "cuda":
+            fail(f"GoEnv backends: {[(e.backend, e.device) for e in envs]}")
+        ms = ([], [], [])
+        moves = ended = 0
+        for _ in range(games):
+            for e in envs:
+                e.reset()
+            for t in range(cap):
+                a = envs[0].uniform_random_action()
+                out = []
+                for e, times in zip(envs, ms):
+                    t0 = time.perf_counter()
+                    out.append(e.step(a))
+                    times.append(1e3 * (time.perf_counter() - t0))
+                (obs, reward, done, info), *others = out
+                for o, r, d, i in others:
+                    if not (np.array_equal(o, obs) and type(r) is type(reward) and r == reward and d == done
+                            and i["turn"] == info["turn"] and i["prev_player_passed"] == info["prev_player_passed"]
+                            and np.array_equal(i["invalid_moves"], info["invalid_moves"])):
+                        fail(f"GoEnv {size}x{size}: the backends differ at move {t} (action {a})")
+                moves += 1
+                if done:
+                    ended += 1
+                    break
+        if must_end and ended != games:
+            fail(f"GoEnv {size}x{size}: {games - ended} of {games} games did not end in {cap} moves")
+        return ms, moves, ended
+
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    bundle_lib.launches = minmax_lib.launches = 0
+    ms19, moves19, ended19 = play(19, 2, 400, False)
+    ms9, moves9, ended9 = play(9, 8, 2000, True)
+    launches, minmax = bundle_lib.launches, minmax_lib.launches
+    if launches < 2 * (moves19 + moves9) or minmax != 0:
+        fail(f"GoEnv: {launches} bundle launches, {minmax} min/max launches in {moves19 + moves9} moves")
+    for size, (card, native, cpu), moves, ended in ((19, ms19, moves19, ended19), (9, ms9, moves9, ended9)):
+        print(f"[18 GoEnv] {size}x{size} heuristic: {moves} moves ({ended} games ended), torch on the card == "
+              f"native == torch on the CPU at every step (observation, reward, done, info); ms per step: torch "
+              f"on the card {spread(card)}, native {spread(native)}, torch on the CPU {spread(cpu)}", flush=True)
+    print(f"[18 GoEnv] backend='auto' picks native; bundle launches {launches} "
+          f"({launches / (moves19 + moves9):.2f} per move on the card), min/max {minmax}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, minmax
+
+
+def benches():
+    """Phase 19: ``bench_torch.py`` at three batch sizes and the search
+    bench's Gumbel sweep, as subprocesses; returns the rollout benches' JSON
+    records."""
+    t_phase = time.perf_counter()
+    records = []
+    for batch in (4096, 12288, 49152):
+        out = subprocess.run([sys.executable, "bench_torch.py", "--batch", str(batch)], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"bench_torch.py --batch {batch} failed:\n{out.stderr[-2000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        if rec["batch"] != batch or not rec["value"] > 0 or rec["kernel_launches"] != 5 * 65:
+            fail(f"bench_torch.py --batch {batch}: {rec}")
+        records.append(rec)
+        print(f"[19 bench_torch] {json.dumps(rec)}", flush=True)
+    cmd = [sys.executable, "-m", "gymgo_tpu_torch.benchmarks.mcts_bench", "--search", "gumbel", "--channels", "128",
+           "--blocks", "6", "--batch-sweep", "128,256,512", "--repeats", "3"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    rows = [ln for ln in out.stdout.splitlines() if ln.startswith("| ") and ln[2].isdigit()]
+    if out.returncode != 0 or [int(r.split("|")[1]) for r in rows] != [128, 256, 512]:
+        fail(f"mcts_bench sweep failed:\n{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    for line in out.stdout.strip().splitlines():
+        print(f"[19 mcts_bench] {line}", flush=True)
+    print(f"[19 benches] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
 
 
 def main() -> int:
@@ -855,6 +1051,10 @@ def main() -> int:
         train_launches, train_minmax_launches = train_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD,
                                                            Path(workdir))
 
+    gogame_launches, gogame_minmax = gogame_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    env_launches, env_minmax = go_env_path(dev, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    bench_records = benches()
+
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
         "route": "cuda",
@@ -863,6 +1063,9 @@ def main() -> int:
         "launches": launches,
         "launches_play_path": play_launches,
         "launches_train_path": train_launches,
+        "launches_gogame": gogame_launches,
+        "launches_go_env": env_launches,
+        "launches_bench_torch": {r["batch"]: r["kernel_launches"] for r in bench_records},
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,
@@ -877,6 +1080,8 @@ def main() -> int:
         "launches": mm_launches,
         "launches_play_path": play_minmax_launches,
         "launches_train_path": train_minmax_launches,
+        "launches_gogame": gogame_minmax,
+        "launches_go_env": env_minmax,
         "max_abs_err": mm_err,
         "ms": min(mm_ms, mm_ms_2),
         "plain_ms": mm_plain_ms,

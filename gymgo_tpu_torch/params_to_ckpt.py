@@ -14,8 +14,9 @@ boards, a generator seeded from ``--seed``, and the iteration counter set to
         --channels 128 --blocks 6 --iteration 830 --lr 2e-4
     python -m gymgo_tpu_torch.train --resume checkpoints/az19_big.npz --iters 900 ...
 
-The generator's state is a state of the device's generator, so the resuming
-trainer must run on the same kind of device (``--cpu`` on both, or neither).
+The generator's state is a state of the device's generator: a trainer that
+resumes it on another kind of device (``--cpu`` on one side only) seeds its
+generator from ``--seed`` instead, with a note.
 """
 
 from __future__ import annotations

@@ -47,23 +47,30 @@ class ReplayBuffer:
 
     def add(self, state: ReplayState, obs, policy, value, mask=None, vmask=None) -> ReplayState:
         """Append M rows at ``(cursor + arange(M)) % capacity``, in place into
-        ``state``'s tensors; returns the state with the new cursor and
-        ``filled`` (clamped to the capacity).  Shapes: obs (M, 6, N, N),
-        policy (M, A), value (M,), mask/vmask (M,) bool (defaults: all live,
-        vmask = mask).  Dead rows (a game-boundary step under auto-reset) are
-        stored but flagged, so the loss masks them out; vmask False keeps a
-        row policy-only."""
+        ``state``'s tensors; returns the state with the new cursor (advanced
+        by M) and ``filled`` (clamped to the capacity).  Shapes: obs
+        (M, 6, N, N), policy (M, A), value (M,), mask/vmask (M,) bool
+        (defaults: all live, vmask = mask).  Dead rows (a game-boundary step
+        under auto-reset) are stored but flagged, so the loss masks them out;
+        vmask False keeps a row policy-only.
+
+        When M exceeds the capacity only the last ``capacity`` rows are
+        written, each at the slot it would have reached: a later row of the
+        same add overwrites an earlier one there (what JAX's ``.at[].set``
+        keeps on the CPU), and a scatter with repeated indices would leave
+        the winner undefined on CUDA."""
         m = obs.shape[0]
         if mask is None:
             mask = torch.ones((m,), dtype=torch.bool, device=obs.device)
         if vmask is None:
             vmask = mask
-        idx = (state.cursor + torch.arange(m, device=state.cursor.device)) % self.capacity
-        state.obs[idx] = obs.to(torch.int8)
-        state.policy[idx] = policy
-        state.value[idx] = value
-        state.mask[idx] = mask
-        state.vmask[idx] = vmask
+        skip = max(m - self.capacity, 0)
+        idx = (state.cursor + skip + torch.arange(m - skip, device=state.cursor.device)) % self.capacity
+        state.obs[idx] = obs[skip:].to(torch.int8)
+        state.policy[idx] = policy[skip:]
+        state.value[idx] = value[skip:]
+        state.mask[idx] = mask[skip:]
+        state.vmask[idx] = vmask[skip:]
         return state._replace(
             cursor=(state.cursor + m) % self.capacity,
             filled=(state.filled + m).clamp_max(self.capacity),

@@ -125,7 +125,7 @@ def trainer_tree(train_state: TrainState, buf_state: ReplayState, env_states, ge
     AdamW state (``opt_state``: one ``step`` count and per-parameter
     ``exp_avg`` / ``exp_avg_sq``, zeros before the first update), the update
     ``step``, the replay ``buf``, ``env_states``, the ``generator``'s state and
-    the ``iteration`` counter."""
+    its device type, and the ``iteration`` counter."""
     net, optimizer = train_state.net, train_state.optimizer
     exp_avg, exp_avg_sq, steps = {}, {}, set()
     for name, p in net.named_parameters():
@@ -142,6 +142,7 @@ def trainer_tree(train_state: TrainState, buf_state: ReplayState, env_states, ge
         "buf": buf_state._asdict(),
         "env_states": env_states,
         "generator": generator.get_state(),
+        "generator_device": np.str_(generator.device.type),
         "iteration": np.int64(iteration),
         "target_params": _state_dict_f32(target),
     }
@@ -241,17 +242,28 @@ class Trainer:
         else:
             self.log(f"note: --envs {self.args.envs} != checkpoint {states.shape[0]}; env states reset fresh",
                      flush=True)
-        if "generator" in tree:
-            try:
-                self.generator.set_state(as_t(tree["generator"]).to(torch.uint8))
-            except RuntimeError as e:
-                raise ValueError(f"the checkpoint's generator state is not one of a {dev.type} generator") from e
-        else:
+        if "generator" not in tree:
             self.log(f"note: a JAX key cannot seed a torch generator; seeded from --seed {self.args.seed}",
                      flush=True)
+        elif not self._restore_generator(tree):
+            self.log(f"note: the checkpoint's generator is not one of a {dev.type} generator; seeded from "
+                     f"--seed {self.args.seed}", flush=True)
         self.iteration = int(tree["iteration"])
         self.target.load_state_dict({k: as_t(v) for k, v in tree["target_params"].items()}, strict=True)
         refresh_(self.acting, self.net)
+
+    def _restore_generator(self, tree: dict) -> bool:
+        """Set the generator to the checkpoint's state; False (the generator
+        left seeded from ``--seed``) when that state is one of another device
+        type's generator, or one this generator rejects."""
+        saved = tree.get("generator_device")
+        if saved is not None and str(saved) != self.device.type:
+            return False
+        try:
+            self.generator.set_state(torch.as_tensor(tree["generator"]).to(torch.uint8))
+        except RuntimeError:
+            return False
+        return True
 
     def selfplay(self):
         """One window of self-play from the env states (which it advances);

@@ -1,2 +1,3 @@
-"""Checkpoints and timing (counterpart of ``gymgo_tpu.utils``, its
-``checkpoint`` and ``profiling`` modules)."""
+"""Checkpoints, timing, rollout counters and the terminal board (counterpart
+of ``gymgo_tpu.utils``: its ``checkpoint``, ``profiling``, ``metrics`` and
+``render`` modules)."""

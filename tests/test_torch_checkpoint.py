@@ -135,3 +135,32 @@ def test_profiling_helpers():
     assert profiling.time_fn(lambda: x * 2, reps=2) >= 0.0
     meter = profiling.Meter()
     assert meter.update(100) > 0
+
+
+def test_a_card_generator_resumes_on_the_cpu_seeded_from_seed(tmp_path):
+    """A checkpoint whose generator is a card's (a 16-byte state) resumes under
+    ``--cpu`` with a note and the generator seeded from ``--seed``; so does
+    one that does not say its device type (written before it was stored)."""
+    flags = ("--rollout-steps", "2", "--gumbel-sims", "2", "--train-batch", "8", "--seed", "3", "--iters")
+    trainer = Trainer(_args(*flags, "1"), log=lambda *a, **k: None)
+    trainer.run()
+    tree = trainer.tree()
+    assert str(tree["generator_device"]) == "cpu"
+    card_state = np.arange(16, dtype=np.uint8)
+    for marked in (True, False):
+        card = dict(tree, generator=card_state)
+        if marked:
+            card["generator_device"] = np.str_("cuda")
+        else:
+            del card["generator_device"]
+        path = tmp_path / f"card_{marked}.npz"
+        tckpt.save_npz(path, card)
+        logs = []
+        resumed = Trainer(_args(*flags, "2", "--resume", str(path)),
+                          log=lambda *a, **k: logs.append(" ".join(map(str, a))))
+        fresh = Trainer(_args(*flags, "2"), log=lambda *a, **k: None)
+        assert any("not one of a cpu generator" in line and "--seed 3" in line for line in logs), logs
+        assert torch.equal(resumed.generator.get_state(), fresh.generator.get_state())
+        assert resumed.iteration == 1 and torch.equal(resumed.states, trainer.states)
+        resumed.run()
+        assert resumed.iteration == 2

@@ -349,3 +349,63 @@ def test_trainer_resumes_bit_for_bit_on_the_card(cuda_device, tmp_path):
         assert torch.equal(x, y)
     for p, q in zip(whole.net.parameters(), again.net.parameters()):
         torch.testing.assert_close(q, p, rtol=0, atol=1e-6)
+
+
+def test_replay_add_of_more_rows_than_the_capacity_on_the_card(cuda_device):
+    """The 19x19 recipe's add: 512 envs x 160 moves = 81,920 rows into a
+    65,536-row replay.  Every slot must hold one whole row (its obs, policy,
+    value and masks all of that row), the rows must be the last 65,536, each
+    at the slot it reached, and the card must equal the CPU."""
+    from gymgo_tpu_torch.rl.replay import ReplayBuffer
+
+    n, capacity, m, start = 19, 65536, 81920, 1000
+    ids = torch.arange(m, dtype=torch.int64)
+    bits = (ids[:, None] >> torch.arange(17)) & 1
+    obs = torch.zeros((m, 6 * n * n), dtype=torch.int8)
+    obs[:, :17] = bits.to(torch.int8)
+    obs = obs.view(m, 6, n, n)
+    policy = torch.zeros((m, n * n + 1))
+    policy[:, 0] = ids.to(torch.float32)
+    value, mask, vmask = ids.to(torch.float32), ids % 2 == 0, ids % 3 == 0
+    out = []
+    for device in (torch.device("cpu"), cuda_device):
+        buf = ReplayBuffer(capacity, n, device=device)
+        st = buf.init()
+        st = buf.add(st, *(x[:start].to(device) for x in (obs, policy, value, mask, vmask)))
+        st = buf.add(st, *(x.to(device) for x in (obs, policy, value, mask, vmask)))
+        out.append(st)
+    cpu, card = out
+    for x, y in zip(cpu, card):
+        assert torch.equal(x, y.cpu())
+    row = card.value.cpu().to(torch.int64)
+    assert torch.equal(card.policy[:, 0].cpu().to(torch.int64), row)
+    assert torch.equal(((card.obs.cpu().view(capacity, -1)[:, :17].to(torch.int64)) << torch.arange(17)).sum(1), row)
+    assert torch.equal(card.mask.cpu(), row % 2 == 0) and torch.equal(card.vmask.cpu(), row % 3 == 0)
+    slots = (start + torch.arange(m - capacity, m)) % capacity
+    assert torch.equal(row[slots], torch.arange(m - capacity, m))
+    assert int(card.cursor) == (start + m) % capacity and int(card.filled) == capacity
+
+
+def test_go_env_on_the_card_matches_native_and_cpu(cuda_device):
+    from gymgo_tpu_torch.env import GoEnv
+
+    envs = [GoEnv(9, reward_method="heuristic", backend="torch", device=cuda_device),
+            GoEnv(9, reward_method="heuristic", backend="native"),
+            GoEnv(9, reward_method="heuristic", backend="torch", device="cpu")]
+    assert [e.backend for e in envs] == ["torch", "native", "torch"]
+    rng = np.random.RandomState(0)
+    launches = tbundle.BUNDLE_FLOOD.launches
+    for t in range(400):
+        valid = np.flatnonzero(envs[0].valid_moves())
+        a = int(rng.choice(valid))
+        (obs, reward, done, info), *others = [e.step(a) for e in envs]
+        for o, r, d, i in others:
+            assert np.array_equal(o, obs) and r == reward and d == done
+            assert i["turn"] == info["turn"] and i["prev_player_passed"] == info["prev_player_passed"]
+            assert np.array_equal(i["invalid_moves"], info["invalid_moves"])
+        if done:
+            break
+    assert tbundle.BUNDLE_FLOOD.launches >= launches + 2 * (t + 1)  # each step classifies, then floods
+    for canonical in (False, True):
+        want = envs[1].children(canonical)
+        assert np.array_equal(envs[0].children(canonical), want) and np.array_equal(envs[2].children(canonical), want)

@@ -24,6 +24,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gymgo_tpu"))
+import torch
+assert not torch.cuda.is_initialized()  # importing the port touches no device
 print(len(names), bad)
 """
 
@@ -33,7 +35,7 @@ def test_port_imports_no_jax_and_nothing_of_gymgo_tpu():
         [sys.executable, "-c", _CHECK], cwd=_REPO, capture_output=True, text=True, check=True,
     ).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 31, n_modules
+    assert n_modules >= 41, n_modules
     assert bad == "[]", bad
 
 
@@ -44,7 +46,8 @@ def test_every_module_is_found():
                  "convert", "govars", "config", "core.transform", "models", "models.az_net", "rl",
                  "rl.treewalk", "rl.gumbel_mcts", "rl.search", "rl.evaluate", "rl.mcts", "rl.selfplay",
                  "rl.replay", "rl.learner", "models.surgery", "utils", "utils.checkpoint", "utils.profiling",
-                 "train", "params_to_ckpt"):
+                 "train", "params_to_ckpt", "gogame", "native", "env.go_env", "env.go_extrahard_env",
+                 "utils.metrics", "utils.render", "benchmarks", "benchmarks.mcts_bench"):
         assert f"gymgo_tpu_torch.{name}" in names
 
 
@@ -111,4 +114,7 @@ def test_sub_packages_ship_with_the_package():
     include = tomllib.loads((_REPO / "pyproject.toml").read_text())["tool"]["setuptools"]["packages"]["find"]["include"]
     found = set(find_packages(where=str(_REPO), include=include))
     assert {"gymgo_tpu_torch", "gymgo_tpu_torch.core", "gymgo_tpu_torch.ops", "gymgo_tpu_torch.env",
-            "gymgo_tpu_torch.models", "gymgo_tpu_torch.rl", "gymgo_tpu_torch.utils"} <= found
+            "gymgo_tpu_torch.models", "gymgo_tpu_torch.rl", "gymgo_tpu_torch.utils", "gymgo_tpu_torch.native",
+            "gymgo_tpu_torch.benchmarks"} <= found
+    package_data = tomllib.loads((_REPO / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
+    assert "*.cc" in package_data["gymgo_tpu_torch.native"]

@@ -66,3 +66,24 @@ def test_add_defaults_and_generator_sample():
     assert (counts[5:] == 0).all() and (counts[:5] > 700).all() and len(seen) > 0
     empty = buf.sample(buf.init(), g, 8)  # an empty buffer samples row 0
     assert empty[0].shape == (8, 6, N, N)
+
+
+@pytest.mark.parametrize("capacity,adds", [(8, (13,)), (64, (81,)), (8, (3, 13, 21)), (64, (40, 81, 64, 5))])
+def test_add_of_more_rows_than_the_capacity_matches_jax(capacity, adds):
+    """An add of M > capacity rows keeps, in every slot, the last row of the
+    add that reached it (JAX's ``.at[].set`` keeps the last write on the
+    CPU), and advances the cursor by M."""
+    rng = np.random.default_rng(capacity + len(adds))
+    jbuf, tbuf = JReplayBuffer(capacity, N), ReplayBuffer(capacity, N, device="cpu")
+    js, ts = jbuf.init(), tbuf.init()
+    for m in adds:
+        obs, policy, value, mask, vmask = _rows(rng, m)
+        js = jbuf.add(js, jnp.asarray(obs), policy, value, mask, vmask)
+        ts = tbuf.add(ts, *(torch.from_numpy(x) for x in (obs, policy, value, mask, vmask)))
+        _assert_state_equal(ts, js)
+    # the last add's final rows sit where the cursor left them
+    tail = min(adds[-1], capacity)
+    slots = (int(ts.cursor) - tail + np.arange(tail)) % capacity
+    np.testing.assert_array_equal(ts.policy.numpy()[slots], policy[-tail:])
+    np.testing.assert_array_equal(ts.obs.numpy()[slots], obs[-tail:])
+    assert int(ts.cursor) == sum(adds) % capacity and int(ts.filled) == min(sum(adds), capacity)
