@@ -99,11 +99,38 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
  19. the benches: ``bench_torch.py`` at ``--batch`` 4096, 12288 and 49152,
      and ``python -m gymgo_tpu_torch.benchmarks.mcts_bench --search gumbel
      --channels 128 --blocks 6 --batch-sweep 128,256,512 --repeats 3``, as
-     subprocesses, their JSON line and table parsed.
+     subprocesses, their JSON line and table parsed;
+ 20. GTP on the card at full width, the committed 19x19 128x6 net, komi 7.5,
+     the match pass rule on: (a) ``make_net_genmove(..., simulations=32,
+     search="gumbel")`` in ``GTPEngine(19, backend="native")``, 24 genmoves
+     answered by seeded random ``play`` replies: every response '=', every
+     move legal for the native engine, exactly 2 x 32 bundle launches per
+     genmove, ``final_score`` equal to ``gogame.areas(..., device="cuda")``;
+     ms per genmove; one more search under the host-sync counter and the
+     profiler; (b) PUCT with subtree reuse, 32 simulations, 10
+     genmoves: the carried tree survives ``play``, ``undo`` and
+     ``clear_board`` drop it; (c) the greedy mover in float32 (TF32 off) on
+     the card against the CPU over 40 plies, equal but where the CPU's top
+     two masked logits lie within 1e-4; (d) a seeded random 19x19 session
+     through ``GTPEngine(backend="torch", device="cuda")`` and native:
+     transcripts equal character for character; (e) 21b's Gumbel mover
+     (the 9x9 ``az9_r5_iter100`` net, 32 simulations, komi 0) on the card
+     against the CPU, given the same root draws, at 8 positions of a seeded
+     random game: float32 (TF32 off) equal but at most one position, and the
+     bfloat16 mover's agreement with the CPU counted;
+ 21. the tools as subprocesses: ``efficiency`` (torch on the card and native,
+     2 iterations each), then side by side ``eval_ckpt`` (the 9x9
+     ``az9_r5_iter100`` net, search 32/16, 32 games in 2 chunks, move cap 120,
+     ``--retries 1`` with a worker killed at chunk 1: the ledger and the
+     report add up, the net scores >= 0.85 by area), ``gtp_match`` (4 games,
+     ``net:az9:32`` against random, through ``tests/torch_pass_rule.py``,
+     which counts the passes the match pass rule replaces by random moves)
+     and ``value_probe`` (not collapsed).
 
-Phases 12-14 are the play path, 15 the training path, 17-18 the host surface;
-the launch counts are set to 0 before the search, each match, the training
-run, the ``gogame`` game and the ``GoEnv`` games, and read after.  After phase
+Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
+20 the GTP front end; the launch counts are set to 0 before the search, each
+match, the training run, the ``gogame`` game, the ``GoEnv`` games and phase
+20, and read after.  After phase
 15, a replay of the recipe's size takes one add of more rows than its
 capacity (81,920 into 65,536): every slot must hold one whole row, the last
 65,536 in order.
@@ -117,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -848,6 +876,312 @@ def benches():
     return records
 
 
+def gtp_path(dev, bundle_lib, minmax_lib):
+    """Phase 20: GTP ``genmove`` on the card at full width, with the committed
+    19x19 128x6 net.  Returns the phase's launch counts ``(of the bundle
+    kernel, of the min/max kernel)``, set to 0 before (a) and read after
+    (d)."""
+    from gymgo_tpu_torch import gogame
+    from gymgo_tpu_torch.convert import aznet_config_from_flax, load_aznet_npz, read_flax_npz
+    from gymgo_tpu_torch.core import actions as tactions
+    from gymgo_tpu_torch.core import transform as ttransform
+    from gymgo_tpu_torch.native import NativeGoEngine
+    from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
+    from gymgo_tpu_torch.utils.gtp import GTPEngine, _action_to_vertex, _vertex_to_action, make_net_genmove
+
+    N19, CH, BL, KOMI, SIMS = 19, 128, 6, 7.5, 32
+    t_phase = time.perf_counter()
+    referee = NativeGoEngine(N19)
+
+    def random_reply(eng, rng):
+        """A uniformly random legal board move for the side to move (no pass
+        while a board move exists), as a ``play`` line."""
+        moves = np.flatnonzero(eng.state[3].reshape(-1) == 0)
+        a = int(rng.choice(moves)) if moves.size else N19 * N19
+        return f"play {'w' if eng.state[2, 0, 0] else 'b'} {_action_to_vertex(a, N19)}"
+
+    def session(eng, genmoves, rng, tag, check_tree=None):
+        """``genmoves`` genmoves for black, each answered by ``random_reply``
+        for white; every response must start with '=', every move must be
+        legal for the native engine.  Returns (ms per genmove, launches per
+        genmove)."""
+        state = np.zeros((6, N19, N19), np.int8)
+        ms, per_move = [], []
+        for i in range(genmoves):
+            before = bundle_lib.launches
+            t0 = time.perf_counter()
+            resp, err, _ = eng.handle("genmove b")
+            ms.append(1e3 * (time.perf_counter() - t0))
+            per_move.append(bundle_lib.launches - before)
+            if err or not resp.startswith("= "):
+                fail(f"20{tag}: genmove {i} answered {resp!r}")
+            state, status = referee.next_state(state, _vertex_to_action(resp[2:].strip(), N19))
+            if status != 0:
+                fail(f"20{tag}: genmove {i} played {resp[2:].strip()}, illegal for the native engine")
+            line = random_reply(eng, rng)
+            resp, err, _ = eng.handle(line)
+            if err or not resp.startswith("="):
+                fail(f"20{tag}: {line} answered {resp!r}")
+            state, status = referee.next_state(state, _vertex_to_action(line.split()[-1], N19))
+            if status != 0 or not np.array_equal(state, eng.state):
+                fail(f"20{tag}: the engine and the native referee disagree after move {i}")
+            if check_tree is not None:
+                check_tree()
+        return ms, per_move
+
+    torch.cuda.synchronize()
+    bundle_lib.launches = minmax_lib.launches = 0
+
+    # (a) Gumbel search, 32 simulations, 24 genmoves
+    GENMOVES = 24
+    mover = make_net_genmove(str(NET_19), N19, CH, BL, simulations=SIMS, komi=KOMI, seed=SEED, search="gumbel",
+                             device=dev)
+    if next(mover._net.parameters()).dtype != torch.bfloat16:
+        fail("20a: the GTP net is not bfloat16 on the card")
+    eng = GTPEngine(N19, KOMI, mover, seed=SEED, match_pass_rule=True, backend="native")
+    ms_a, per_a = session(eng, GENMOVES, np.random.default_rng(SEED), "a")
+    expected = 2 * SIMS  # one stateless step_states per simulation: the board classified before the move, then the flood
+    if any(k != expected for k in per_a):
+        fail(f"20a: bundle launches per genmove {per_a}, expected {expected}")
+    score = eng.handle("final_score")[0][2:].strip()
+    black, white = gogame.areas(eng.state.astype(np.float64), device=dev)
+    diff = black - white - KOMI
+    want = f"B+{diff:g}" if diff > 0 else f"W+{-diff:g}" if diff < 0 else "0"
+    if score != want:
+        fail(f"20a: final_score {score} but gogame.areas on the card gives {want}")
+    print(f"[20a GTP gumbel] 19x19 128x6 bfloat16, {SIMS} simulations, {GENMOVES} genmoves against seeded random "
+          f"replies, komi {KOMI}, pass rule on: all '=' and legal; ms per genmove {spread(ms_a)} (the first "
+          f"{ms_a[0]:.1f}); bundle launches per genmove {per_a[0]} (= 2 x {SIMS}, "
+          f"every genmove); final_score {score} == gogame.areas(device='cuda')", flush=True)
+    with host_syncs() as caught:
+        mover(eng.state)
+    prof_wall_us, rows = device_profile(lambda: mover(eng.state))
+    busy_us = sum(r[0] for r in rows)
+    top = "; ".join(f"{k[:48]} {us / 1e3:.2f} ms x{c}" for us, c, k in rows[:5])
+    print(f"[20a GTP gumbel] one more search of the final position: {len(caught)} host syncs; under the profiler "
+          f"{prof_wall_us / 1e3:.1f} ms wall, device busy {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / prof_wall_us:.1f}%) in {sum(r[1] for r in rows)} launches; top: {top}", flush=True)
+
+    # (b) PUCT with subtree reuse, 32 simulations, 10 genmoves
+    PUCT_MOVES = 10
+    puct = make_net_genmove(str(NET_19), N19, CH, BL, simulations=SIMS, komi=KOMI, seed=SEED, search="puct",
+                            device=dev)
+    eng = GTPEngine(N19, KOMI, puct, seed=SEED, match_pass_rule=True, backend="native")
+
+    def tree_carried():
+        if puct._tree is None:
+            fail("20b: the carried tree did not survive play")
+
+    ms_b, per_b = session(eng, PUCT_MOVES, np.random.default_rng(SEED + 1), "b", tree_carried)
+    if any(k != expected for k in per_b):
+        fail(f"20b: bundle launches per genmove {per_b}, expected {expected}")
+    eng.handle("undo")
+    if puct._tree is not None:
+        fail("20b: undo did not clear the carried tree")
+    if not eng.handle("genmove w")[0].startswith("= ") or puct._tree is None:
+        fail("20b: genmove after undo")
+    eng.handle("clear_board")
+    if puct._tree is not None:
+        fail("20b: clear_board did not clear the carried tree")
+    print(f"[20b GTP puct] 19x19 128x6 bfloat16, {SIMS} simulations, subtree reuse, {PUCT_MOVES} genmoves: all "
+          f"legal, the tree carried through every play, undo and clear_board drop it; ms per genmove "
+          f"{spread(ms_b)}; bundle launches per genmove {per_b[0]} (= 2 x {SIMS}, every genmove)", flush=True)
+
+    # (c) the greedy mover in float32 on the card against the CPU, 40 plies
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    card = make_net_genmove(str(NET_19), N19, CH, BL, device=dev, dtype=torch.float32)
+    cpu = make_net_genmove(str(NET_19), N19, CH, BL, device="cpu", dtype=torch.float32)
+    cpu_net = load_aznet_npz(NET_19, device="cpu", dtype=torch.float32)
+    state, near_ties, differ, plies = np.zeros((6, N19, N19), np.int8), [], [], 40
+    for ply in range(plies):
+        a_card, a_cpu = card(state), cpu(state)
+        if a_card != a_cpu:
+            st = torch.from_numpy(state[None])
+            with torch.no_grad():
+                logits = cpu_net(ttransform.batch_canonical_form(st))[0]
+            masked = torch.where(tactions.batch_valid_moves(st) > 0, logits, -torch.inf)[0]
+            top2 = masked.topk(2).values
+            gap = float(top2[0] - top2[1])
+            differ.append((ply, a_card, a_cpu, gap))
+            if gap > 1e-4:
+                fail(f"20c: ply {ply}: the card plays {a_card}, the CPU {a_cpu}, top-two gap {gap:.3g} > 1e-4")
+        state, status = referee.next_state(state, a_cpu)
+        if status != 0:
+            fail(f"20c: the greedy move {a_cpu} at ply {ply} is illegal")
+        if state[5, 0, 0]:
+            plies = ply + 1
+            break
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[20c GTP greedy] float32, TF32 off: {plies} plies, the card's move == the CPU's at every ply but "
+          f"{len(differ)} near-tie(s) {differ} (top-two CPU logits within 1e-4 allowed)", flush=True)
+
+    # (d) the engine itself on the card against native, a seeded random session
+    session_d = (["fixed_handicap 4", "showboard"] + [f"genmove {'w' if i % 2 == 0 else 'b'}" for i in range(120)]
+                 + ["showboard", "final_score", "undo", "genmove w", "play b pass", "final_score", "showboard"])
+    engines = (GTPEngine(N19, KOMI, seed=SEED, match_pass_rule=True, backend="torch", device=dev),
+               GTPEngine(N19, KOMI, seed=SEED, match_pass_rule=True, backend="native"))
+    if engines[0].backend != "torch" or engines[0].device.type != "cuda" or engines[1].backend != "native":
+        fail("20d: the engines' backends")
+    before = bundle_lib.launches
+    ms_d = ([], [])
+    transcripts = ([], [])
+    for line in session_d:
+        for eng, times, out in zip(engines, ms_d, transcripts):
+            t0 = time.perf_counter()
+            out.append(eng.handle(line)[0])
+            times.append(1e3 * (time.perf_counter() - t0))
+    text = ["".join(t) for t in transcripts]
+    if text[0] != text[1]:
+        first = next(i for i, (x, y) in enumerate(zip(*transcripts)) if x != y)
+        fail(f"20d: the card's transcript differs from native at {session_d[first]!r}: {transcripts[0][first]!r} "
+             f"vs {transcripts[1][first]!r}")
+    card_launches = bundle_lib.launches - before
+    print(f"[20d GTP engine] 19x19 seeded random session of {len(session_d)} commands (4 handicap stones, 121 "
+          f"genmoves, pass rule on): backend='torch' on the card == native, {len(text[0])} characters; ms per "
+          f"command {spread(ms_d[0])} on the card, {spread(ms_d[1])} native; bundle launches {card_launches}", flush=True)
+
+    # (e) 21b's Gumbel mover (the 9x9 net, komi 0) on the card against the CPU, given the same root draws, at
+    # every other ply of a seeded random game: float32 (TF32 off) equal but at most one position, as in
+    # phase 13's replay; bfloat16 on the card, as GTP runs it, counted against the CPU
+    N9, POS9 = 9, 8
+    cfg9 = aznet_config_from_flax(read_flax_npz(NET_9))
+    draws = {}
+    movers = {name: make_net_genmove(str(NET_9), N9, cfg9.channels, cfg9.blocks, simulations=SIMS, komi=0.0,
+                                     seed=SEED, device=d, dtype=dt, gumbel_source=lambda d=d: draws["g"].to(d))
+              for name, d, dt in (("cpu", "cpu", torch.float32), ("card32", dev, torch.float32),
+                                  ("card16", dev, torch.bfloat16))}
+    cpu_net9 = load_aznet_npz(NET_9, device="cpu", dtype=torch.float32)
+    referee9, rng = NativeGoEngine(N9), np.random.default_rng(SEED + 20)
+    state, differ, bf16_equal = np.zeros((6, N9, N9), np.int8), [], 0
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for pos in range(POS9):
+        draws["g"] = torch.from_numpy(rng.gumbel(size=(1, N9 * N9 + 1)).astype(np.float32))
+        moves = {name: mover(state) for name, mover in movers.items()}
+        bf16_equal += moves["card16"] == moves["cpu"]
+        if moves["card32"] != moves["cpu"]:
+            res = run_gumbel_mcts(None, torch.from_numpy(state[None]), cpu_net9, num_simulations=SIMS, komi=0.0,
+                                  gumbel=draws["g"])
+            cand = res.sampled_actions[0].long()
+            visited = cand[res.root_visits[0, cand] > 0]
+            top2 = (draws["g"][0, visited] + res.improved_policy[0, visited].log()).topk(2).values
+            differ.append((2 * pos, moves["card32"], moves["cpu"], float(top2[0] - top2[1])))
+        for _ in range(2):
+            legal = np.flatnonzero(state[3].reshape(-1) == 0)
+            state, status = referee9.next_state(state, int(rng.choice(legal)) if legal.size else N9 * N9)
+            if status != 0:
+                fail(f"20e: a random move at position {pos} is illegal")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if len(differ) > 1:
+        fail(f"20e: the card's float32 Gumbel mover differs from the CPU's at {differ} (ply, card, CPU, final gap)")
+    print(f"[20e GTP gumbel 9x9] {NET_9.name}, {SIMS} simulations, komi 0, the same root draws, {POS9} positions "
+          f"of a random game: float32 (TF32 off) on the card == the CPU but {differ} (ply, card, CPU, the CPU's "
+          f"final score gap); bfloat16 on the card == the CPU's float32 move at {bf16_equal} of {POS9}", flush=True)
+    launches, minmax = bundle_lib.launches, minmax_lib.launches
+    if minmax != 0:
+        fail(f"phase 20 launched the min/max kernel {minmax} times")
+    print(f"[20 GTP] bundle launches in phase 20 {launches}, min/max {minmax}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, minmax
+
+
+def tools(workdir):
+    """Phase 21: the tools as subprocesses, on the card: ``efficiency`` (torch
+    on the card, then native), then ``eval_ckpt`` through an injected crash,
+    ``gtp_match`` and ``value_probe`` side by side (each is host-bound and
+    single-threaded)."""
+    from gymgo_tpu_torch.convert import aznet_config_from_flax, read_flax_npz
+    from gymgo_tpu_torch.utils import faulttol
+
+    t_phase = time.perf_counter()
+    cfg9 = aznet_config_from_flax(read_flax_npz(NET_9))
+    width = ["--channels", str(cfg9.channels), "--blocks", str(cfg9.blocks)]
+    net9 = str(NET_9.relative_to(ROOT))  # the subprocesses run from the root
+
+    def run(args, env=None):
+        head = [sys.executable] if args[0].endswith(".py") else [sys.executable, "-m"]
+        return subprocess.Popen([*head, *args], cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env)
+
+    def wait(proc, name, timeout):
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"21 {name}: timed out after {timeout} s")
+        if proc.returncode != 0:
+            fail(f"21 {name} failed (rc {proc.returncode}):\n{out[-2000:]}{err[-2000:]}")
+        return out
+
+    # (d) efficiency: the reference protocol at 9x9
+    for engine, iters in (("torch", 2), ("native", 2)):  # the protocol's 64 cut to the run's time limit
+        t0 = time.perf_counter()
+        out = wait(run(["gymgo_tpu_torch.benchmarks.efficiency", "--engine", engine, "--iterations", str(iters)]),
+                   f"efficiency --engine {engine}", 300)
+        lines = out.strip().splitlines()
+        if not (lines[0].startswith(f"engine={engine} backend={engine}") and len(lines) == 4
+                and lines[-1].startswith("Rand Trajs w/ Children:")):
+            fail(f"21d efficiency --engine {engine}: {out[-1000:]}")
+        where = "on the card" if engine == "torch" else "native"
+        print(f"[21d efficiency] --engine {engine} ({where}), 9x9, --iterations {iters}: "
+              f"{' | '.join(lines[1:])}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) eval_ckpt through an injected crash, (b) gtp_match, (c) value_probe, side by side
+    GAMES, CHUNK, MAX_STEPS, GTP_GAMES = 32, 16, 120, 4
+    ledger, marker = workdir / "eval.jsonl", workdir / "crash.marker"
+    env = dict(os.environ, GYMGO_EVAL_CRASH_AT_CHUNK="1", GYMGO_EVAL_CRASH_MARKER=str(marker))
+    t0 = time.perf_counter()
+    procs = {
+        "eval_ckpt": run(["gymgo_tpu_torch.scripts.eval_ckpt", "--ckpt", net9, "--board", "9", *width,
+                          "--sims", "32", "--gumbel-m", "16", "--games", str(GAMES), "--chunk", str(CHUNK),
+                          "--max-steps", str(MAX_STEPS), "--retries", "1", "--state-file", str(ledger)], env=env),
+        # gtp_match's CLI with the match pass rule's replacements counted
+        "gtp_match": run(["tests/torch_pass_rule.py", "port", "--boardsize", "9", "--games", str(GTP_GAMES), *width,
+                          "--a", f"net:{net9}:32", "--b", "random"]),
+        "value_probe": run(["gymgo_tpu_torch.scripts.value_probe", "--ckpt", net9, "--board", "9", *width]),
+    }
+    outs = {name: wait(proc, name, 600) for name, proc in procs.items()}
+    wall = time.perf_counter() - t0
+
+    out = outs["eval_ckpt"]
+    if not marker.exists() or "child died (rc=137)" not in out:
+        fail(f"21a eval_ckpt: the injected crash did not happen:\n{out[-1500:]}")
+    recs = list(faulttol.load_ledger(str(ledger)).values())
+    tally = {k: sum(r[k] for r in recs) for k in ("wins", "losses", "ties", "unfinished", "scored_wins",
+                                                  "scored_losses")}
+    line = out.strip().splitlines()[-1]
+    m = re.search(r"vs uniform-random: (\d+)W/(\d+)L/(\d+)T, (\d+) unfinished, winrate=([0-9.]+)", line)
+    if (len(recs) != 2 or m is None or [int(x) for x in m.groups()[:4]]
+            != [tally[k] for k in ("wins", "losses", "ties", "unfinished")]
+            or tally["wins"] + tally["losses"] + tally["ties"] + tally["unfinished"] != GAMES):
+        fail(f"21a eval_ckpt: the report does not add up: {line!r}, ledger {tally}")
+    score = tally["scored_wins"] / GAMES
+    if not score >= 0.85:
+        fail(f"21a eval_ckpt: the net scored {score:.3f} against random")
+    print(f"[21a eval_ckpt] 9x9 {NET_9.name} (channels {cfg9.channels}, blocks {cfg9.blocks}), search 32/16 with "
+          f"pass-to-win vs uniform random, {GAMES} games in {GAMES // CHUNK} chunks, --max-steps {MAX_STEPS}, "
+          f"--retries 1, a worker killed at chunk 1 and relaunched: {line!r}; area-adjudicated score {score:.3f} "
+          f"(>= 0.85)", flush=True)
+
+    out = outs["gtp_match"]
+    last = out.strip().splitlines()[-1]
+    games = [l for l in out.splitlines() if l.startswith("game ")]
+    counts = [l.strip() for l in out.splitlines() if l.startswith("  pass rule: ")]
+    if re.match(r"A: (\d+)W (\d+)L (\d+)T", last) is None or len(games) != GTP_GAMES or len(counts) != GTP_GAMES:
+        fail(f"21b gtp_match: {out[-1000:]}")
+    print(f"[21b gtp_match] 9x9 net:{NET_9.name}:32 vs random, komi 0, {GTP_GAMES} games over GTP: "
+          f"{' | '.join(g + ' (' + c + ')' for g, c in zip(games, counts))} | {last}", flush=True)
+
+    out = outs["value_probe"]
+    if "VERDICT:" not in out or "COLLAPSED" in out:
+        fail(f"21c value_probe: {out[-1000:]}")
+    print(f"[21c value_probe] 9x9 {NET_9.name}, 256 random games to their ends: "
+          f"{' | '.join(out.strip().splitlines()[-2:])}", flush=True)
+    print(f"[21 tools] (a)-(c) side by side {wall:.1f} s; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -1054,6 +1388,9 @@ def main() -> int:
     gogame_launches, gogame_minmax = gogame_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
     env_launches, env_minmax = go_env_path(dev, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
     bench_records = benches()
+    gtp_launches, gtp_minmax = gtp_path(dev, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    with tempfile.TemporaryDirectory() as workdir:
+        tools(Path(workdir))
 
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
@@ -1066,6 +1403,7 @@ def main() -> int:
         "launches_gogame": gogame_launches,
         "launches_go_env": env_launches,
         "launches_bench_torch": {r["batch"]: r["kernel_launches"] for r in bench_records},
+        "launches_gtp": gtp_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,
@@ -1082,6 +1420,7 @@ def main() -> int:
         "launches_train_path": train_minmax_launches,
         "launches_gogame": gogame_minmax,
         "launches_go_env": env_minmax,
+        "launches_gtp": gtp_minmax,
         "max_abs_err": mm_err,
         "ms": min(mm_ms, mm_ms_2),
         "plain_ms": mm_plain_ms,

@@ -13,6 +13,9 @@ gymgo_tpu_torch.train``).  The host surface: the numpy ``gogame``, the
 single-env ``env.GoEnv`` (the C++ engine of ``native`` or the port's step on a
 device), registered with gymnasium as ``go-torch-v0`` and
 ``go-extrahard-torch-v0``, and the rollout counters of ``utils.metrics``.
+The front ends: the GTP engine (``utils.gtp``), SGF (``utils.sgf``), the
+pyglet window, checked stepping (``core.debug``), the tools of ``scripts``
+(``python -m gymgo_tpu_torch.scripts.<name>``) and ``demo``.
 Entry points run on ``cuda`` unless the caller passes another device, and
 raise when there is no card.  This package imports nothing of JAX or of
 ``gymgo_tpu``.

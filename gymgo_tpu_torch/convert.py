@@ -34,6 +34,10 @@ __all__ = [
     "aznet_config_from_flax",
     "read_flax_npz",
     "load_aznet_npz",
+    "aznet_config_from_state_dict",
+    "load_aznet_checkpoint",
+    "flax_params_from_aznet",
+    "flax_treedef_text",
     "trainer_tree_from_jax_npz",
 ]
 
@@ -212,6 +216,113 @@ def load_aznet_npz(path, device=None, dtype=torch.bfloat16) -> AZNet:
         raise ValueError(f"{path}: parameters do not fit {config}: {e}") from e
     return net.to(device).eval().requires_grad_(False)
 
+
+def aznet_config_from_state_dict(sd, dtype=torch.bfloat16) -> AZNetConfig:
+    """The ``AZNetConfig`` that the shapes of a port ``AZNet`` state_dict
+    imply; raises ``ValueError`` where they fit no such net."""
+    try:
+        channels = sd["stem.weight"].shape[0]
+        policy_channels = sd["policy_conv.weight"].shape[0]
+        value_channels = sd["value_conv.weight"].shape[0]
+        actions = sd["policy_out.weight"].shape[0]
+    except (KeyError, IndexError, AttributeError) as e:
+        raise ValueError(f"not an AZNet state_dict: {e!r}") from e
+    n = math.isqrt(actions - 1)
+    if n * n + 1 != actions:
+        raise ValueError(f"a policy head of {actions} actions fits no square board")
+    blocks = sum(1 for name in sd if name.startswith("blocks.") and name.endswith(".conv_0.weight"))
+    return AZNetConfig(board_size=n, channels=channels, blocks=blocks,
+                       policy_channels=policy_channels, value_channels=value_channels, dtype=dtype)
+
+
+def load_aznet_checkpoint(path, device=None, dtype=torch.bfloat16, expect=None) -> AZNet:
+    """An ``AZNet`` in eval mode on ``device`` (``cuda`` unless named) from any
+    of the three checkpoint kinds, told apart by their keys: a params-only
+    artifact or a ``train.py`` checkpoint of the JAX package (``__def__params``,
+    read by ``load_aznet_npz``), or this port's trainer checkpoint
+    (``params/<state_dict name>``, ``utils.checkpoint.save_npz``).
+
+    ``expect`` = ``(board_size, channels, blocks)``: raise ``ValueError``
+    when the file holds another net."""
+    with np.load(path) as data:
+        files = data.files
+        if "__def__params" in files:
+            net = load_aznet_npz(path, device=device, dtype=dtype)
+        elif any(name.startswith("params/") for name in files):
+            sd = {name[len("params/"):]: torch.from_numpy(data[name]) for name in files
+                  if name.startswith("params/")}
+            net = AZNet(aznet_config_from_state_dict(sd, dtype))
+            try:
+                net.load_state_dict(sd, strict=True)
+            except RuntimeError as e:
+                raise ValueError(f"{path}: parameters do not fit {net.config}: {e}") from e
+            net = net.to(resolve_device(device)).eval().requires_grad_(False)
+        else:
+            raise ValueError(f"{path}: neither a JAX params tree (__def__params) nor a trainer checkpoint (params/)")
+    if expect is not None:
+        cfg = net.config
+        if (cfg.board_size, cfg.channels, cfg.blocks) != tuple(expect):
+            n, c, b = expect
+            raise ValueError(f"{path} holds a {cfg.board_size}x{cfg.board_size} {cfg.channels}x{cfg.blocks} net, "
+                             f"not {n}x{n} {c}x{b}")
+    return net
+
+
+class _Leaf:
+    def __repr__(self):
+        return "*"
+
+
+def flax_treedef_text(tree) -> str:
+    """``repr(treedef)`` of the nested dicts ``tree`` as
+    ``jax.tree_util.tree_flatten`` gives it: ``PyTreeDef({...})``, every
+    level's keys sorted as strings, ``*`` for each leaf."""
+    def stars(t):
+        return {k: stars(t[k]) for k in sorted(t)} if isinstance(t, dict) else _Leaf()
+
+    return f"PyTreeDef({stars(tree)!r})"
+
+
+def flax_params_from_aznet(net) -> dict:
+    """The inverse of ``aznet_state_dict_from_flax``: the flax variables
+    ``{"params": {"Conv_0": {"kernel": ...}, ...}}`` of the JAX package's
+    ``AZNet`` as float32 numpy arrays, from a port ``AZNet``.  Conv kernels
+    go from OIHW to HWIO, dense kernels are transposed, and the rows of the
+    two dense kernels that follow a flatten go back from the port's
+    ``(c, h, w)`` to flax's ``(h, w, c)``."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in net.state_dict().items()}
+    config = aznet_config_from_state_dict(sd)
+    hw = config.board_size ** 2
+
+    def conv(name):
+        return np.ascontiguousarray(np.transpose(sd[name], (2, 3, 1, 0)))
+
+    def dense(name, flattened_hw=0):
+        k = sd[name].T
+        if flattened_hw:
+            rows, out = k.shape
+            k = k.reshape(rows // flattened_hw, flattened_hw, out).transpose(1, 0, 2).reshape(rows, out)
+        return np.ascontiguousarray(k)
+
+    def norm(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    p = {
+        "Conv_0": {"kernel": conv("stem.weight")},
+        "GroupNorm_0": norm("stem_norm"),
+        "Conv_1": {"kernel": conv("policy_conv.weight"), "bias": sd["policy_conv.bias"]},
+        "Dense_0": {"kernel": dense("policy_out.weight", hw), "bias": sd["policy_out.bias"]},
+        "Conv_2": {"kernel": conv("value_conv.weight"), "bias": sd["value_conv.bias"]},
+        "Dense_1": {"kernel": dense("value_hidden.weight", hw), "bias": sd["value_hidden.bias"]},
+        "Dense_2": {"kernel": dense("value_out.weight"), "bias": sd["value_out.bias"]},
+    }
+    for i in range(config.blocks):
+        block = {}
+        for j in (0, 1):
+            block[f"Conv_{j}"] = {"kernel": conv(f"blocks.{i}.conv_{j}.weight")}
+            block[f"GroupNorm_{j}"] = norm(f"blocks.{i}.norm_{j}")
+        p[f"ResBlock_{i}"] = block
+    return {"params": p}
 
 
 def _numpy_state_dict(tree, config: AZNetConfig) -> dict:

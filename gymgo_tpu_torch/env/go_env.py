@@ -212,9 +212,9 @@ class GoEnv(_ENV_BASE):
     def render(self, mode="terminal"):
         if mode == "terminal":
             print(self.__str__())
-        elif mode == "human":
-            import pyglet  # noqa: F401 - raises ImportError where pyglet is absent, as in the JAX package
+        elif mode == "human":  # needs a display and pyglet
+            from gymgo_tpu_torch.utils import gui
 
-            raise NotImplementedError("the pyglet window (gymgo_tpu.utils.gui) is not ported yet")
+            return gui.run_game_window(self)
         else:
             raise ValueError(f"unknown render mode {mode!r}")

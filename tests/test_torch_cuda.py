@@ -409,3 +409,54 @@ def test_go_env_on_the_card_matches_native_and_cpu(cuda_device):
     for canonical in (False, True):
         want = envs[1].children(canonical)
         assert np.array_equal(envs[0].children(canonical), want) and np.array_equal(envs[2].children(canonical), want)
+
+
+def test_gtp_genmove_with_gumbel_search_on_the_card_is_legal(cuda_device):
+    from gymgo_tpu_torch.native import NativeGoEngine
+    from gymgo_tpu_torch.utils.gtp import GTPEngine, _vertex_to_action, make_net_genmove
+
+    mover = make_net_genmove(str(_ARTIFACTS / "az9_r5_iter100_params.npz"), 9, 64, 3, simulations=8, komi=7.5,
+                             seed=1)  # cuda and bfloat16 by default
+    assert next(mover._net.parameters()).is_cuda
+    eng = GTPEngine(9, 7.5, mover, match_pass_rule=True, backend="native")
+    referee = NativeGoEngine(9)
+    state = np.zeros((6, 9, 9), np.int8)
+    launches = tbundle.BUNDLE_FLOOD.launches
+    for ply in range(8):
+        resp, err, _ = eng.handle(f"genmove {'b' if ply % 2 == 0 else 'w'}")
+        assert not err and resp.startswith("= ")
+        state, status = referee.next_state(state, _vertex_to_action(resp[2:].strip(), 9))
+        assert status == 0
+    np.testing.assert_array_equal(eng.state, state)
+    assert tbundle.BUNDLE_FLOOD.launches >= launches + 8 * 8  # the search steps on the card
+
+
+def test_gtp_engine_on_the_card_matches_native(cuda_device):
+    from gymgo_tpu_torch.utils.gtp import GTPEngine
+
+    session = (["fixed_handicap 4", "showboard"] + [f"genmove {'w' if i % 2 == 0 else 'b'}" for i in range(160)]
+               + ["final_score", "showboard", "undo", "genmove b", "final_score"])
+    card = GTPEngine(9, 6.5, seed=3, match_pass_rule=True, backend="torch", device=cuda_device)
+    native = GTPEngine(9, 6.5, seed=3, match_pass_rule=True, backend="native")
+    assert card.backend == "torch" and card.device.type == "cuda"
+    launches = tbundle.BUNDLE_FLOOD.launches
+    for line in session:
+        assert card.handle(line) == native.handle(line), line
+    assert tbundle.BUNDLE_FLOOD.launches > launches
+    np.testing.assert_array_equal(card.state, native.state)
+
+
+def test_checked_step_on_the_card_raises_on_a_bad_batch(cuda_device):
+    from gymgo_tpu_torch.core.debug import checked_step
+
+    states = batch_init_state(8, 9, device=cuda_device)
+    centre, passes = torch.full((8,), 40, device=cuda_device), torch.full((8,), 81, device=cuda_device)
+    got, info = checked_step(states, centre)
+    want, _ = tstep.step_states(states, centre)
+    assert torch.equal(got, want) and not info.invalid_action.any()
+    with pytest.raises(RuntimeError, match="invalid action"):
+        checked_step(got, centre)  # the point is taken
+    ended, _ = checked_step(checked_step(got, passes)[0], passes)
+    assert bool(ended[:, 5].all())
+    with pytest.raises(RuntimeError, match="finished game"):
+        checked_step(ended, passes)

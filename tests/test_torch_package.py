@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_nothing_of_gymgo_tpu():
         [sys.executable, "-c", _CHECK], cwd=_REPO, capture_output=True, text=True, check=True,
     ).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 41, n_modules
+    assert n_modules >= 57, n_modules
     assert bad == "[]", bad
 
 
@@ -47,7 +47,11 @@ def test_every_module_is_found():
                  "rl.treewalk", "rl.gumbel_mcts", "rl.search", "rl.evaluate", "rl.mcts", "rl.selfplay",
                  "rl.replay", "rl.learner", "models.surgery", "utils", "utils.checkpoint", "utils.profiling",
                  "train", "params_to_ckpt", "gogame", "native", "env.go_env", "env.go_extrahard_env",
-                 "utils.metrics", "utils.render", "benchmarks", "benchmarks.mcts_bench"):
+                 "utils.metrics", "utils.render", "benchmarks", "benchmarks.mcts_bench", "core.debug",
+                 "utils.faulttol", "utils.gui_math", "utils.sgf", "utils.gui", "utils.gtp", "scripts",
+                 "scripts.gtp_match", "scripts.elo_ladder", "scripts.eval_ckpt", "scripts.export_params",
+                 "scripts.net2net", "scripts.value_probe", "demo", "benchmarks.efficiency",
+                 "benchmarks.native_batch"):
         assert f"gymgo_tpu_torch.{name}" in names
 
 
@@ -115,6 +119,6 @@ def test_sub_packages_ship_with_the_package():
     found = set(find_packages(where=str(_REPO), include=include))
     assert {"gymgo_tpu_torch", "gymgo_tpu_torch.core", "gymgo_tpu_torch.ops", "gymgo_tpu_torch.env",
             "gymgo_tpu_torch.models", "gymgo_tpu_torch.rl", "gymgo_tpu_torch.utils", "gymgo_tpu_torch.native",
-            "gymgo_tpu_torch.benchmarks"} <= found
+            "gymgo_tpu_torch.benchmarks", "gymgo_tpu_torch.scripts"} <= found
     package_data = tomllib.loads((_REPO / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"]
     assert "*.cc" in package_data["gymgo_tpu_torch.native"]
