@@ -96,7 +96,8 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      to ``backend="native"``'s and ``backend="torch", device="cpu"``'s fed
      the same actions; ms per step on the card and native (median, min,
      max); ``backend="auto"`` picks native;
- 19. the benches: ``bench_torch.py`` at ``--batch`` 4096, 12288 and 49152,
+ 19. the benches: ``bench_torch.py`` at ``--batch`` 4096 and 49152 (its
+     12288 is phase 4's rollout, dropped to keep the run in its time limit),
      and ``python -m gymgo_tpu_torch.benchmarks.mcts_bench --search gumbel
      --channels 128 --blocks 6 --batch-sweep 128,256,512 --repeats 3``, as
      subprocesses, their JSON line and table parsed;
@@ -125,12 +126,44 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      report add up, the net scores >= 0.85 by area), ``gtp_match`` (4 games,
      ``net:az9:32`` against random, through ``tests/torch_pass_rule.py``,
      which counts the passes the match pass rule replaces by random moves)
-     and ``value_probe`` (not collapsed).
+     and ``value_probe`` (not collapsed);
+ 22. the parallel layer on the card: (a) ``ShardedGoEnv`` at 19x19,
+     B = 12288, heuristic, auto-reset, on k = 1, 2 and 4 logical shards of
+     the card (``make_mesh(devices=[cuda] * k)``), a 64-step rollout from
+     phase 4's boards equal bit for bit to the unsharded ``rollout`` from the
+     same seed (final states, actions, rewards, dones), the bundle kernel
+     launched exactly k x (64 + 1) times: once per shard per step, and once
+     per shard for the seeding of the carried atari/ko planes each call
+     makes; then, for the unsharded rollout and each k, 3 timed windows of
+     64 steps from the same boards, and for the unsharded rollout and k = 4
+     a device profile of 16 steps; (b)
+     ``scripts.multiproc_worker`` as 2 ranks of 2 logical shards on the one
+     card (gloo) at 19x19, B = 4096, 64 steps: both ranks' checksums equal a
+     one-process rollout's; then 2 segments with rank 1 killed after segment
+     0 and the survivor ended, and a fresh 2-rank job restarted from the
+     checkpoint: equal to an uninterrupted segmented run; (c) the
+     data-parallel learner step (``tests/torch_dp_step.py``, 2 ranks of 512
+     rows, gloo) with the 19x19 128x6 iter-830 net in float32 (TF32 off), the
+     masks differing between the halves, against one process on the 1024 rows:
+     after the first AdamW step (lr 2e-4) the loss within 2e-5, the
+     gradients the ranks summed within phase 16b's 1e-2 of each tensor's
+     largest entry of one process's, and the parameters within 16b's 2 lr;
+     3 steps timed on each side; (d) ``scripts.scaling_proxy --mode procs``
+     and ``scripts.multihost_bench`` with one process, at 19x19 B = 4096, as
+     subprocesses, their JSON lines parsed (``--mode mesh`` measures what
+     (a) does, and runs in the CPU tests only, to keep the run in its time
+     limit);
+ 23. the soak: ``python -m gymgo_tpu_torch.scripts.fuzz_parity --device
+     cuda`` at 9x9 and 19x19, 16 games each, up to 300 steps: every state of
+     every game after every step equal between the batched step on the card
+     and the native engine (at least 3000 states), and 2 bundle launches per
+     step.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
-20 the GTP front end; the launch counts are set to 0 before the search, each
-match, the training run, the ``gogame`` game, the ``GoEnv`` games and phase
-20, and read after.  After phase
+20 the GTP front end, 22-23 the parallel layer and the soak; the launch
+counts are set to 0 before the search, each match, the training run, the
+``gogame`` game, the ``GoEnv`` games, phase 20 and each sharded rollout of
+22a, and read after.  After phase
 15, a replay of the recipe's size takes one add of more rows than its
 capacity (81,920 into 65,536): every slot must hold one whole row, the last
 65,536 in order.
@@ -849,12 +882,12 @@ def go_env_path(dev, bundle_lib, minmax_lib):
 
 
 def benches():
-    """Phase 19: ``bench_torch.py`` at three batch sizes and the search
+    """Phase 19: ``bench_torch.py`` at two batch sizes and the search
     bench's Gumbel sweep, as subprocesses; returns the rollout benches' JSON
     records."""
     t_phase = time.perf_counter()
     records = []
-    for batch in (4096, 12288, 49152):
+    for batch in (4096, 49152):  # 12288 is phase 4's rollout
         out = subprocess.run([sys.executable, "bench_torch.py", "--batch", str(batch)], cwd=ROOT,
                              capture_output=True, text=True, timeout=300)
         if out.returncode != 0:
@@ -1182,6 +1215,279 @@ def tools(workdir):
 
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start(args):
+    """A subprocess from the root: ``args[0]`` a script (``*.py``) or a module."""
+    head = [sys.executable] if args[0].endswith(".py") else [sys.executable, "-m"]
+    return subprocess.Popen([*head, *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(name, procs, timeout):
+    """The stdouts of ``procs``, each waited on with ``timeout``; fails on a
+    non-zero exit or a timeout, and kills whatever still runs."""
+    results = []
+    try:
+        for proc in procs:
+            try:
+                results.append(proc.communicate(timeout=timeout) + (proc.returncode,))
+            except subprocess.TimeoutExpired:
+                fail(f"{name}: timed out after {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for i, (out, err, rc) in enumerate(results):
+        if rc != 0:
+            fail(f"{name}: process {i} exited {rc}:\n{out[-1500:]}{err[-1500:]}")
+    return [out for out, _, _ in results]
+
+
+def json_line(out):
+    return json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
+
+
+def checksums(r):
+    """The multi-process worker's checksums of a rollout (float64 sums)."""
+    return {"state_checksum": int(r.final_states.sum(dtype=torch.int64)),
+            "action_checksum": int(r.actions.sum(dtype=torch.int64)),
+            "reward_checksum": float(r.rewards.double().sum())}
+
+
+CHECKSUM_KEYS = ("state_checksum", "action_checksum", "reward_checksum")
+
+
+def sharding_path(dev, states, bundle_lib, minmax_lib, workdir):
+    """Phase 22: the parallel layer on the card.  ``states`` are phase 4's
+    steady-state boards.  Returns the bundle kernel's launches in (a) per
+    number of shards, and (a)'s rates (key 0: unsharded)."""
+    from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core.state import batch_init_state
+    from gymgo_tpu_torch.env.batch_env import rollout
+    from gymgo_tpu_torch.models.az_net import AZNet
+    from gymgo_tpu_torch.parallel import ShardedGoEnv, make_mesh
+    from gymgo_tpu_torch.rl.learner import make_train_state, train_step
+    from gymgo_tpu_torch.utils.checkpoint import restore_npz, save_npz
+    from gymgo_tpu_torch.utils.faulttol import chunk_seed
+
+    # (a) k logical shards of the card against the unsharded rollout
+    t_phase = time.perf_counter()
+    B, STEPS, WINDOWS, PROF_STEPS = 12288, 64, 3, 16
+    cfg = EnvConfig(board_size=19, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+    plain = rollout(torch.Generator(device=dev).manual_seed(SEED + 22), states, STEPS, cfg)
+    launches, rates = {}, {}
+    # the unsharded rollout timed and profiled the same way, in this phase, for the rates of each k
+    rates[0], _, _ = timed_windows(rollout, torch.Generator(device=dev).manual_seed(SEED + 23), plain.final_states,
+                                   cfg, STEPS, WINDOWS)
+    wall_us, rows = device_profile(lambda: rollout(torch.Generator(device=dev).manual_seed(SEED), states,
+                                                   PROF_STEPS, cfg))
+    busy_us = sum(row[0] for row in rows)
+    print(f"[22a logical shards] 19x19 B={B}, unsharded: {WINDOWS} windows: {rates_text(rates[0])}; profiled "
+          f"{PROF_STEPS} steps: wall {wall_us / PROF_STEPS:.1f} us/step, device busy "
+          f"{busy_us / PROF_STEPS:.1f} us/step ({100 * busy_us / wall_us:.1f}%), "
+          f"{sum(row[1] for row in rows) / PROF_STEPS:.1f} kernel launches/step", flush=True)
+    for k in (1, 2, 4):
+        env = ShardedGoEnv(cfg, make_mesh(devices=[dev] * k))
+        torch.cuda.synchronize()
+        bundle_lib.launches = minmax_lib.launches = 0
+        r = env.rollout(torch.Generator(device=dev).manual_seed(SEED + 22), states, STEPS)
+        torch.cuda.synchronize()
+        launches[k] = bundle_lib.launches
+        if launches[k] != k * (STEPS + 1) or minmax_lib.launches != 0:
+            fail(f"22a k={k}: bundle kernel launched {launches[k]} times (expected {k} x ({STEPS} + 1)), "
+                 f"min/max {minmax_lib.launches}")
+        for field in ("final_states", "actions", "rewards", "dones", "invalid"):
+            if not torch.equal(getattr(r, field), getattr(plain, field)):
+                fail(f"22a k={k}: the sharded rollout differs from the unsharded one on {field}")
+        rates[k], _, _ = timed_windows(lambda g, s, w, c: env.rollout(g, s, w), torch.Generator(device=dev)
+                                       .manual_seed(SEED + 23), plain.final_states, cfg, STEPS, WINDOWS)
+        profiled = ""
+        if k == 4:
+            wall_us, rows = device_profile(lambda: env.rollout(torch.Generator(device=dev).manual_seed(SEED),
+                                                               states, PROF_STEPS))
+            busy_us = sum(row[0] for row in rows)
+            profiled = (f"; profiled {PROF_STEPS} steps: wall {wall_us / PROF_STEPS:.1f} us/step, device busy "
+                        f"{busy_us / PROF_STEPS:.1f} us/step ({100 * busy_us / wall_us:.1f}%), "
+                        f"{sum(row[1] for row in rows) / PROF_STEPS:.1f} kernel launches/step")
+        print(f"[22a logical shards] 19x19 B={B}, k={k} shards of one card, {STEPS} steps from phase 4's "
+              f"boards: final states, actions, rewards, dones == unsharded bit for bit; bundle launches "
+              f"{launches[k]} = {k} x ({STEPS} + 1); {WINDOWS} windows from the unsharded windows' start: "
+              f"{rates_text(rates[k])} ({statistics.median(rates[k]) / statistics.median(rates[0]):.3f} of "
+              f"unsharded){profiled}", flush=True)
+    print(f"[22a logical shards] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (b) two ranks on the one card (gloo), against one process; then killed and restarted
+    t0 = time.perf_counter()
+    N, B2, STEPS2, SEGS = 19, 4096, 64, 2
+
+    def worker(pid, port, *extra):
+        return ["gymgo_tpu_torch.scripts.multiproc_worker", "--coordinator", f"localhost:{port}",
+                "--num-processes", "2", "--process-id", str(pid), "--local-devices", "2", "--device", "cuda",
+                "--board", str(N), "--batch", str(B2), "--steps", str(STEPS2), "--seed", str(SEED), *extra]
+
+    port = free_port()
+    outs = [json_line(o) for o in finish("22b two ranks", [start(worker(pid, port)) for pid in (0, 1)], 300)]
+    cfg2 = EnvConfig(board_size=N, batch_size=B2, auto_reset=True)
+    one = checksums(rollout(torch.Generator(device=dev).manual_seed(SEED), batch_init_state(B2, N, device=dev),
+                            STEPS2, cfg2))
+    got = [{k: o[k] for k in CHECKSUM_KEYS} for o in outs]
+    if got[0] != got[1] or got[0] != one or {o["backend"] for o in outs} != {"gloo"}:
+        fail(f"22b: two ranks {outs} against one process {one}")
+    ckpt = workdir / "ranks.npz"
+    seg = ["--num-segments", str(SEGS), "--ckpt", str(ckpt)]
+    port = free_port()
+    p0, p1 = start(worker(0, port, *seg)), start(worker(1, port, *seg, "--crash-after-segment", "0"))
+    try:
+        try:
+            _, err1 = p1.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            fail("22b: the rank meant to crash timed out")
+        if p1.returncode != 1 or not ckpt.exists():
+            fail(f"22b: rank 1 exited {p1.returncode} (expected 1), checkpoint written {ckpt.exists()}:"
+                 f"\n{err1[-1500:]}")
+        try:  # the survivor fails on its dead peer or waits on it: the launcher ends it
+            p0.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            pass
+    finally:
+        for proc in (p0, p1):
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+    survivor = p0.returncode
+    port = free_port()
+    resumed = [json_line(o) for o in finish("22b restart", [start(worker(pid, port, *seg, "--start-segment", "1"))
+                                                           for pid in (0, 1)], 300)]
+    s = batch_init_state(B2, N, device=dev)
+    for i in range(SEGS):
+        r = rollout(torch.Generator(device=dev).manual_seed(chunk_seed(SEED, i)), s, STEPS2 // SEGS, cfg2)
+        s = r.final_states
+    whole = checksums(r)
+    got = [{k: o[k] for k in CHECKSUM_KEYS} for o in resumed]
+    if got[0] != got[1] or got[0] != whole:
+        fail(f"22b: the restarted run {resumed} differs from the uninterrupted one {whole}")
+    print(f"[22b two ranks] 19x19 B={B2}, {STEPS2} steps, 2 ranks x 2 logical shards on one card (gloo): "
+          f"checksums {outs[0]['state_checksum']}/{outs[0]['action_checksum']}/"
+          f"{outs[0]['reward_checksum']} on both == one process; segmented ({SEGS} segments), rank 1 killed after "
+          f"segment 0 (the survivor {'exited ' + str(survivor) if survivor is not None else 'was killed'}), "
+          f"restarted from the checkpoint: == uninterrupted ({whole}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) the data-parallel learner step: 2 ranks of 512 rows against one process on 1024
+    t0 = time.perf_counter()
+    ROWS, LR, STEPS_C, LOSS_ATOL, GRAD_RTOL = 1024, 2e-4, 3, 2e-5, 1e-2  # phase 16b's tolerances
+    rng = np.random.default_rng(SEED + 22)
+    obs = states[:ROWS].cpu().numpy()
+    valid = np.concatenate([obs[:, 3].reshape(ROWS, -1) == 0, np.ones((ROWS, 1), bool)], 1)
+    pi = np.where(valid, np.exp(2 * rng.standard_normal(valid.shape)), 0.0)
+    pi = (pi / pi.sum(1, keepdims=True)).astype(np.float32)
+    v = rng.choice([-1.0, 0.0, 1.0], ROWS).astype(np.float32)
+    first = np.arange(ROWS) < ROWS // 2
+    mask = rng.random(ROWS) < np.where(first, 0.9, 0.3)
+    vmask = mask & (rng.random(ROWS) < np.where(first, 0.7, 0.2))
+    batch = {"obs": obs, "pi": pi, "v": v, "mask": mask, "vmask": vmask}
+    sd = {k: t.detach().cpu() for k, t in load_aznet_npz(NET_19, device="cpu", dtype=torch.float32)
+          .state_dict().items()}
+    save_npz(workdir / "dp_in.npz", {"net": sd, "batches": {str(i): batch for i in range(STEPS_C)}})
+    port = free_port()
+    finish("22c learner ranks", [start(["tests/torch_dp_step.py", "--coordinator", f"localhost:{port}",
+                                        "--num-processes", "2", "--process-id", str(pid), "--device", "cuda",
+                                        "--lr", str(LR), "--inputs", str(workdir / "dp_in.npz"),
+                                        "--out", str(workdir / "dp_out.npz")]) for pid in (0, 1)], 300)
+    tree = restore_npz(workdir / "dp_out.npz")
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        net = AZNet(load_aznet_npz(NET_19, device="cpu", dtype=torch.float32).config, torch.float32).to(dev)
+        net.load_state_dict(sd)
+        net.train()
+        state = make_train_state(net, learning_rate=LR)
+        rows = [torch.from_numpy(batch[k]).to(dev) for k in ("obs", "pi", "v", "mask", "vmask")]
+        single_ms = []
+        for i in range(STEPS_C):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = train_step(state, rows)
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t1) * 1e3)
+            if i == 0:
+                loss0 = float(m["loss"])
+                after = {k: t.detach().cpu().clone() for k, t in net.state_dict().items()}
+                grads = {k: p.grad.detach().cpu().numpy() for k, p in net.named_parameters()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    dp = tree["params"]["0"]
+    param_err = max(float(np.abs(dp[k] - after[k].numpy()).max()) for k in after)
+    over = sum(int((np.abs(dp[k] - after[k].numpy()) > 2e-5).sum()) for k in after)
+    entries = sum(t.numel() for t in after.values())
+    loss_dp = float(tree["metrics"]["0"]["loss"])
+    moved = max(float((after[k] - sd[k]).abs().max()) for k in after)
+    # the first step's gradients, summed over the ranks, against one process's: each tensor's max |diff|
+    # relative to its largest entry (AdamW's first step bounds the parameters' gap by 2 lr whatever the
+    # gradients, so they alone show that the sum is the whole batch's)
+    grad_errs = {k: float(np.abs(tree["grads"]["0"][k] - g).max() / max(float(np.abs(g).max()), 1e-30))
+                 for k, g in grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[worst]
+    if (abs(loss_dp - loss0) > LOSS_ATOL or grad_err > GRAD_RTOL or param_err > 2 * LR
+            or not moved > 0.5 * LR):
+        fail(f"22c: the 2-rank step differs from one process's by {abs(loss_dp - loss0):.3g} (loss; atol "
+             f"{LOSS_ATOL}), {grad_err:.3g} (gradients, {worst}; relative {GRAD_RTOL}) and {param_err:.3g} "
+             f"(parameters; atol {2 * LR}); the parameters moved {moved:.3g}")
+    dp_ms = [float(x) for x in tree["ms"]]
+    print(f"[22c learner] 19x19 128x6 iter-830 net, float32 (TF32 off), AdamW lr {LR}, {ROWS} rows whose masks "
+          f"differ between the halves: 2 ranks x {ROWS // 2} rows (gloo, gradients through pinned host memory) "
+          f"against 1 process: loss {loss_dp:.7f} / {loss0:.7f}, gradients max |diff| / max |g| per tensor "
+          f"{grad_err:.3g} ({worst}; relative {GRAD_RTOL}), parameters max |diff| {param_err:.3g} "
+          f"({over} of {entries} entries over 2e-05; atol 2 lr = {2 * LR}); step ms (host clock; the ranks' "
+          f"first step is their fresh processes' first, cold): "
+          f"2 ranks {', '.join(f'{x:.1f}' for x in dp_ms)}; 1 process {', '.join(f'{x:.1f}' for x in single_ms)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) the scaling scripts as subprocesses
+    t0 = time.perf_counter()
+    sizes = ["--board", "19", "--envs", "4096", "--steps", "32", "--warmup", "64", "--repeats", "3"]
+    rec = json_line(finish("22d scaling_proxy --mode procs", [start(
+        ["gymgo_tpu_torch.scripts.scaling_proxy", "--mode", "procs", *sizes])], 300)[0])
+    if rec["mode"] != "procs" or not all(row["env_steps_per_sec"] > 0 for row in rec["rows"]):
+        fail(f"22d scaling_proxy --mode procs: {rec}")
+    print(f"[22d scaling_proxy] {json.dumps(rec)}", flush=True)
+    rec = json_line(finish("22d multihost_bench", [start(
+        ["gymgo_tpu_torch.scripts.multihost_bench", "--board", "19", "--envs-per-host", "4096", "--warmup-steps",
+         "128", "--steps", "64", "--repeats", "3"])], 300)[0])
+    if rec["hosts"] != 1 or len(rec["aggregate_env_steps_per_sec"]) != 3 or not rec["aggregate_median"] > 0:
+        fail(f"22d multihost_bench: {rec}")
+    print(f"[22d multihost_bench] {json.dumps(rec)}; (d) {time.perf_counter() - t0:.1f} s; phase 22 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rates
+
+
+def soak():
+    """Phase 23: ``fuzz_parity`` on the card at 9x9 and 19x19: the batched
+    ``step_states`` (two bundle launches a step) against the native engine,
+    every state of every game after every step."""
+    t0 = time.perf_counter()
+    GAMES = 16
+    rec = json_line(finish("23 fuzz_parity", [start(
+        ["gymgo_tpu_torch.scripts.fuzz_parity", "--device", "cuda", "--sizes", "9", "19", "--games", str(GAMES),
+         "--max-steps", "300"])], 300)[0])
+    steps = rec["states_checked"] // GAMES
+    if rec["states_checked"] < 3000 or rec["bundle_launches"] != 2 * steps:
+        fail(f"23 fuzz_parity: {rec} (expected 2 bundle launches for each of {steps} steps)")
+    print(f"[23 soak] {rec['states_checked']} states of {GAMES} games at 9x9 and 19x19 on {rec['device']}: "
+          f"torch == native on every one; bundle launches {rec['bundle_launches']} (2 per step); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rec["bundle_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -1391,6 +1697,9 @@ def main() -> int:
     gtp_launches, gtp_minmax = gtp_path(dev, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
     with tempfile.TemporaryDirectory() as workdir:
         tools(Path(workdir))
+    with tempfile.TemporaryDirectory() as workdir:
+        sharded_launches, _ = sharding_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD, Path(workdir))
+    soak_launches = soak()
 
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
@@ -1404,6 +1713,8 @@ def main() -> int:
         "launches_go_env": env_launches,
         "launches_bench_torch": {r["batch"]: r["kernel_launches"] for r in bench_records},
         "launches_gtp": gtp_launches,
+        "launches_sharded": {f"{k} shards": n for k, n in sharded_launches.items()},
+        "launches_soak": soak_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,

@@ -15,7 +15,9 @@ device), registered with gymnasium as ``go-torch-v0`` and
 ``go-extrahard-torch-v0``, and the rollout counters of ``utils.metrics``.
 The front ends: the GTP engine (``utils.gtp``), SGF (``utils.sgf``), the
 pyglet window, checked stepping (``core.debug``), the tools of ``scripts``
-(``python -m gymgo_tpu_torch.scripts.<name>``) and ``demo``.
+(``python -m gymgo_tpu_torch.scripts.<name>``) and ``demo``.  The parallel
+layer: meshes of devices over ``torch.distributed`` ranks and the env-sharded
+``ShardedGoEnv`` (``parallel``), and the data-parallel learner step.
 Entry points run on ``cuda`` unless the caller passes another device, and
 raise when there is no card.  This package imports nothing of JAX or of
 ``gymgo_tpu``.

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 REAL = "real"
 HEURISTIC = "heuristic"
@@ -42,3 +43,17 @@ class EnvConfig:
     @property
     def pass_action(self) -> int:
         return self.board_size * self.board_size
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for sharded stepping and learning.
+
+    The ``env`` axis shards the env batch (pure data parallel: a Go step has no
+    cross-env communication).  A ``model`` axis is used by the learner for
+    tensor-parallel sharding of network parameters
+    (``models.az_net.param_shardings``).
+    """
+
+    axis_names: Tuple[str, ...] = ("env",)
+    axis_sizes: Optional[Tuple[int, ...]] = None  # None -> all devices on axis 0

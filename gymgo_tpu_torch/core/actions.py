@@ -19,7 +19,9 @@ __all__ = [
     "mask_early_pass",
     "children",
     "kth_valid_actions",
-    "draw_k",
+    "draw_words",
+    "scale_words",
+    "uniform_from_words",
     "uniform_random_actions",
     "uniform_random_actions_planes",
     "gumbel_noise",
@@ -112,22 +114,30 @@ def kth_valid_actions(valid_board: torch.Tensor, k: torch.Tensor) -> torch.Tenso
     return torch.where(k == num_board, m, board_choice).to(torch.int32)
 
 
-def draw_k(generator: torch.Generator, num_valid: torch.Tensor) -> torch.Tensor:
-    """k ~ U[0, num_valid] per env (int64), with no host sync.
+def draw_words(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """One random 31-bit word per env, int64 ``shape``, drawn on ``device``
+    from ``generator`` with no host sync.
 
-    One 31-bit word per env scaled by multiply-and-shift; the bias is below
-    (num_valid + 1) / 2^31.
-    """
-    word = torch.randint(
-        0, 1 << 31, num_valid.shape, generator=generator,
-        device=num_valid.device, dtype=torch.int64,
-    )
+    A sharded rollout draws the words of the whole batch once and hands each
+    shard its rows, so its stream does not depend on the sharding."""
+    return torch.randint(0, 1 << 31, tuple(shape), generator=generator, device=device, dtype=torch.int64)
+
+
+def scale_words(word: torch.Tensor, num_valid: torch.Tensor) -> torch.Tensor:
+    """k in [0, num_valid] per env (int64) from ``draw_words``' words, by
+    multiply-and-shift; the bias is below (num_valid + 1) / 2^31."""
     return (word * (num_valid.to(torch.int64) + 1)) >> 31
 
 
+def uniform_from_words(word: torch.Tensor, valid_board: torch.Tensor) -> torch.Tensor:
+    """The uniform sampler's actions from its words: the k-th valid move of
+    each env of bool ``valid_board`` ``(B, N*N)``, pass ranked last."""
+    return kth_valid_actions(valid_board, scale_words(word, valid_board.sum(dim=1, dtype=torch.int32)))
+
+
 def _uniform_from_valid(generator, valid_board):
-    k = draw_k(generator, valid_board.sum(dim=1, dtype=torch.int32))
-    return kth_valid_actions(valid_board, k)
+    word = draw_words(generator, valid_board.shape[:1], valid_board.device)
+    return uniform_from_words(word, valid_board)
 
 
 def uniform_random_actions(generator: torch.Generator, states: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,10 @@
 The rollout is an eager Python loop over steps.  On the default path (uniform
 sampler, carried atari/ko planes) a step makes no host sync: the sampler draws
 on the device from a ``torch.Generator``, and the bundle flood's fixpoint loop
-runs inside its CUDA kernel.
+runs inside its CUDA kernel.  On a mesh (``gymgo_tpu_torch.parallel``) the
+per-env work runs once per env shard (``shard_over_envs``) and the random
+words are drawn for the whole batch, so a sharded rollout equals the
+unsharded one from the same generator.
 """
 
 from __future__ import annotations
@@ -13,13 +16,15 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from gymgo_tpu_torch import govars
 from gymgo_tpu_torch.config import HEURISTIC, REAL, EnvConfig
 from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
 
-__all__ = ["StepResult", "Rollout", "reward_from_areas", "batch_step", "rollout", "BatchGoEnv"]
+__all__ = ["StepResult", "Rollout", "reward_from_areas", "batch_step", "shard_over_envs", "rollout",
+           "BatchGoEnv"]
 
 
 class StepResult(NamedTuple):
@@ -81,60 +86,160 @@ class Rollout(NamedTuple):
     obs: Optional[torch.Tensor] = None  # int8 (T, B, 6, N, N) when collected
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of ``tree``: a tensor, or a (named) tuple of
+    trees; ``None`` and other leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = [_tree_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _tree_concat(trees, dim=0):
+    """The trees of ``trees`` (one structure) joined leaf by leaf on ``dim``,
+    on the first tree's devices."""
+    first = trees[0]
+    if len(trees) == 1:
+        return first
+    if isinstance(first, torch.Tensor):
+        return torch.cat([x.to(first.device) for x in trees], dim=dim)
+    if isinstance(first, tuple):
+        items = [_tree_concat([t[i] for t in trees], dim) for i in range(len(first))]
+        return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
+    return first
+
+
+def shard_over_envs(fn: Callable, mesh, concat: Optional[bool] = None) -> Callable:
+    """Run ``fn`` (per-env semantics, every tensor argument and result batched
+    on the leading env dim) once per env shard this process owns, on that
+    shard's rows and device.
+
+    An argument is either the list of this process's shards, taken as they
+    are, or a global tensor (or a named tuple of them; ``None`` fields pass
+    through) of which each shard takes its rows, moved to its device (a view
+    when they lie there already).  The results are concatenated in shard
+    order when the mesh is local (on the first shard's device) and left as
+    the list of local shards' results when it spans processes; ``concat``
+    overrides that.
+
+    The per-shard calls make no collective: a shard's convergence checks are
+    its own (the minmax route's host check in ``core.flood.flood_or``), and
+    the bundle kernel launches once per shard on the shard's contiguous rows.
+    """
+    join = mesh.is_local if concat is None else concat
+    local = mesh.local_shards()
+
+    def run(*args):
+        outs = []
+        for j, (i, dev) in enumerate(local):
+            shard_args = []
+            for arg in args:
+                if isinstance(arg, list):
+                    shard_args.append(arg[j])
+                else:
+                    shard_args.append(_tree_map(lambda x: x[mesh.rows(i, x.shape[0])].to(dev), arg))
+            outs.append(fn(*shard_args))
+        return _tree_concat(outs) if join else outs
+
+    return run
+
+
+def _seeded_planes(states):
+    """The rollout's planes state with its carried atari/ko planes."""
+    ps = _step.planes_from_states(states)
+    return ps._replace(atari=_step.init_atari(ps), ko_surr=_step.init_ko_surr(ps))
+
+
+def _reset_finished(ps):
+    """Zero the finished envs of the planes state in place (the carried planes
+    too): every plane is a fresh tensor owned by the rollout."""
+    reset = ps.done.clone()
+    for x in ps:
+        x.masked_fill_(reset.view((-1,) + (1,) * (x.dim() - 1)), 0)
+
+
 def rollout(
     generator: torch.Generator,
-    states: torch.Tensor,
+    states,
     num_steps: int,
     config: EnvConfig,
     policy_fn: Optional[Callable] = None,
     collect_obs: bool = False,
+    mesh=None,
 ) -> Rollout:
     """Roll ``num_steps`` lockstep moves from ``states`` (on their device).
 
     ``policy_fn(generator, states) -> actions`` defaults to uniform-random over
     valid moves.  With ``config.auto_reset`` finished games restart in place
-    before the next move.  The carried atari/ko planes are seeded once; each
-    step refreshes them from its own flood.
+    before the next move.  The carried atari/ko planes are seeded once per
+    call; each step refreshes them from its own flood.
+
+    With ``mesh`` set, ``states`` is the global batch or this process's list
+    of shards (without one, a mesh of one shard on ``states``' device), and
+    the per-env work runs under ``shard_over_envs``: seeding,
+    auto-reset, the move and the reward, once per shard.  The sampler's words
+    are drawn for the whole batch from ``generator`` and sliced per shard, as
+    a (B,) draw is positional: drawn per shard it would change with the
+    sharding.  ``policy_fn`` then sees the rows of this process (all rows on
+    a local mesh), concatenated.  The outputs are global on a local mesh and
+    lists of this process's shards when the mesh spans processes.
     """
-    ps = _step.planes_from_states(states)
-    ps = ps._replace(atari=_step.init_atari(ps), ko_surr=_step.init_ko_surr(ps))
-    b = states.shape[0]
-    dev = states.device
-    acts_out = torch.empty((num_steps, b), dtype=torch.int32, device=dev)
-    rewards = torch.empty((num_steps, b), dtype=torch.float32, device=dev)
-    dones = torch.empty((num_steps, b), dtype=torch.bool, device=dev)
-    invalid = torch.empty((num_steps, b), dtype=torch.bool, device=dev)
-    obs = (
-        torch.empty((num_steps,) + tuple(states.shape), dtype=torch.int8, device=dev)
-        if collect_obs
-        else None
-    )
+    sample = policy_fn is None
+
+    def move(ps, x):
+        acts = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1)) if sample else x
+        ps, info = _step.step_planes(ps, acts)
+        return ps, acts, reward_from_areas(info.black_area, info.white_area, ps.done, config), info.invalid_action
+
+    if mesh is None:
+        from gymgo_tpu_torch.parallel.mesh import local_mesh
+
+        mesh = local_mesh(states.device)
+    batch, join = mesh.global_batch(states), mesh.is_local
+    shards = shard_over_envs(_seeded_planes, mesh, concat=False)(states)
+    move_all = shard_over_envs(move, mesh, concat=False)
+    dtype = (states[0] if isinstance(states, list) else states).dtype
+    outs = []
+    for ps in shards:
+        b, dev = ps.done.shape[0], ps.done.device
+        outs.append((
+            torch.empty((num_steps, b), dtype=torch.int32, device=dev),
+            torch.empty((num_steps, b), dtype=torch.float32, device=dev),
+            torch.empty((num_steps, b), dtype=torch.bool, device=dev),
+            torch.empty((num_steps, b), dtype=torch.bool, device=dev),
+            torch.empty((num_steps, b, govars.NUM_CHNLS) + tuple(ps.black.shape[1:]), dtype=torch.int8,
+                        device=dev) if collect_obs else None,
+        ))
     for t in range(num_steps):
         if config.auto_reset:
-            # Every plane is a fresh tensor owned by this loop, so zero the
-            # finished envs in place (the carried planes too).
-            reset = ps.done.clone()
-            for x in ps:
-                x.masked_fill_(reset.view((-1,) + (1,) * (x.dim() - 1)), 0)
-        if policy_fn is None:
-            acts = _actions.uniform_random_actions_planes(generator, ps)
+            for ps in shards:
+                _reset_finished(ps)
+        if sample:
+            x = _actions.draw_words(generator, (batch,), generator.device)
         else:
-            acts = policy_fn(generator, _step.states_from_planes(ps))
-        ps, info = _step.step_planes(ps, acts)
-        acts_out[t] = acts
-        rewards[t] = reward_from_areas(info.black_area, info.white_area, ps.done, config)
-        dones[t] = ps.done
-        invalid[t] = info.invalid_action
-        if collect_obs:
-            obs[t] = _step.states_from_planes(ps)
-    return Rollout(
-        actions=acts_out,
-        rewards=rewards,
-        dones=dones,
-        invalid=invalid,
-        final_states=_step.states_from_planes(ps, states.dtype),
-        obs=obs,
-    )
+            local = [_step.states_from_planes(ps) for ps in shards]
+            acts = policy_fn(generator, _tree_concat(local))
+            x = list(torch.split(acts, [len(s) for s in local]))
+            x = [a.to(s.device) for a, s in zip(x, local)]
+        for j, (ps, acts, reward, invalid) in enumerate(move_all(shards, x)):
+            shards[j] = ps
+            acts_out, rewards, dones, inval, obs = outs[j]
+            acts_out[t] = acts
+            rewards[t] = reward
+            dones[t] = ps.done
+            inval[t] = invalid
+            if collect_obs:
+                obs[t] = _step.states_from_planes(ps)
+    fields = list(zip(*(
+        Rollout(actions=o[0], rewards=o[1], dones=o[2], invalid=o[3],
+                final_states=_step.states_from_planes(ps, dtype), obs=o[4])
+        for o, ps in zip(outs, shards))))
+    if not join:
+        return Rollout(*(None if f[0] is None else list(f) for f in fields))
+    return Rollout(*(_tree_concat(list(f), dim=0 if name == "final_states" else 1)
+                     for name, f in zip(Rollout._fields, fields)))
 
 
 class BatchGoEnv:

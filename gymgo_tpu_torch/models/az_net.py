@@ -23,8 +23,8 @@ Where it differs from the flax module, and why the numbers still agree:
   rounding; bfloat16 rounds at other places than XLA and is not bit-equal.
 
 The convolutions and dense layers are PyTorch's: the JAX package computes them
-with XLA outside any kernel of its own.  Tensor-parallel ``param_shardings``
-waits for the port of ``parallel/``.
+with XLA outside any kernel of its own.  ``param_shardings`` is the
+tensor-parallel rule of the JAX package in this layout.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ from torch import nn
 
 from gymgo_tpu_torch import govars
 
-__all__ = ["AZNetConfig", "ResBlock", "AZNet", "init_params", "acting_copy", "refresh_"]
+__all__ = ["AZNetConfig", "ResBlock", "AZNet", "init_params", "acting_copy", "refresh_", "param_shardings",
+           "shard_state_dict"]
 
 _GROUPS = 8
 _GN_EPS = 1e-6  # flax.linen.GroupNorm's default
@@ -157,3 +158,25 @@ def acting_copy(net: AZNet) -> AZNet:
     device = next(net.parameters()).device
     copy = AZNet(net.config).to(device).eval().requires_grad_(False)
     return refresh_(copy, net)
+
+
+def param_shardings(net: nn.Module, mesh, model_axis: str = "model") -> dict:
+    """Tensor-parallel sharding rule (``gymgo_tpu.models.az_net.param_shardings``):
+    a tensor of two or more dims whose *output* dim divides over the model
+    axis is split on it; everything else is replicated.  The output dim is
+    dim 0 here (a conv's OIHW weight, a dense ``(out, in)`` weight), where flax
+    keeps it last.  Returns ``{state_dict name: split dim or None}``."""
+    axis = mesh.shape[model_axis]
+    return {name: 0 if axis > 1 and p.dim() >= 2 and p.shape[0] % axis == 0 else None
+            for name, p in net.state_dict().items()}
+
+
+def shard_state_dict(state_dict: dict, shardings: dict, index: int, axis_size: int) -> dict:
+    """The part of ``state_dict`` that model-axis index ``index`` of
+    ``axis_size`` holds under ``shardings``: split tensors' blocks, views of
+    the replicated ones."""
+    out = {}
+    for name, t in state_dict.items():
+        dim = shardings[name]
+        out[name] = t if dim is None else t.chunk(axis_size, dim=dim)[index]
+    return out

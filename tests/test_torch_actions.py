@@ -67,9 +67,23 @@ def test_generator_draw_is_uniform():
 def test_draw_k_stays_in_range():
     g = torch.Generator().manual_seed(5)
     num_valid = torch.tensor([0, 1, 2, 361] * 1000, dtype=torch.int32)
-    k = tactions.draw_k(g, num_valid)
+    k = tactions.scale_words(tactions.draw_words(g, num_valid.shape, num_valid.device), num_valid)
     assert (k >= 0).all() and (k <= num_valid).all()
     assert (k == num_valid).any() and (k[num_valid == 361] < 361).any()
+
+
+def test_uniform_draws_agree_on_states_planes_and_words():
+    """The three forms of the uniform sampler draw the same actions from one
+    generator state: on the states, on the planes state, and from the words."""
+    from gymgo_tpu_torch.core import step as tstep
+
+    states = torch.from_numpy(np.concatenate([midgame_states(9, 16, 20, 6), midgame_states(9, 16, 90, 7)]))
+    ps = tstep.planes_from_states(states)
+    on_states = tactions.uniform_random_actions(torch.Generator().manual_seed(3), states)
+    on_planes = tactions.uniform_random_actions_planes(torch.Generator().manual_seed(3), ps)
+    words = tactions.draw_words(torch.Generator().manual_seed(3), (32,), "cpu")
+    from_words = tactions.uniform_from_words(words, ~ps.invd.reshape(32, -1))
+    assert torch.equal(on_states, on_planes) and torch.equal(on_states, from_words)
 
 
 def test_batch_valid_moves_matches_jax():

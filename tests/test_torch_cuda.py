@@ -460,3 +460,30 @@ def test_checked_step_on_the_card_raises_on_a_bad_batch(cuda_device):
     assert bool(ended[:, 5].all())
     with pytest.raises(RuntimeError, match="finished game"):
         checked_step(ended, passes)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_logical_shards_on_the_card_equal_the_unsharded_rollout(k, cuda_device):
+    """k logical shards of one card: the same rollout bit for bit from the same
+    generator, the bundle kernel launched once per shard per step plus once
+    per shard for the seeding."""
+    from gymgo_tpu_torch.parallel import ShardedGoEnv, make_mesh
+
+    cfg = EnvConfig(board_size=19, batch_size=512, reward_method="heuristic", auto_reset=True)
+    start = rollout(torch.Generator(device=cuda_device).manual_seed(5), batch_init_state(512, 19, device=cuda_device),
+                    200, cfg).final_states
+    plain = rollout(torch.Generator(device=cuda_device).manual_seed(7), start, 32, cfg)
+    env = ShardedGoEnv(cfg, make_mesh(devices=[cuda_device] * k))
+    launches = tbundle.BUNDLE_FLOOD.launches
+    sharded = env.rollout(torch.Generator(device=cuda_device).manual_seed(7), start, 32)
+    assert tbundle.BUNDLE_FLOOD.launches - launches == k * (32 + 1)
+    for field in ("actions", "rewards", "dones", "invalid", "final_states"):
+        assert torch.equal(getattr(sharded, field), getattr(plain, field)), field
+
+
+def test_fuzz_soak_on_the_card(cuda_device):
+    from gymgo_tpu_torch.scripts.fuzz_parity import fuzz
+
+    launches = tbundle.BUNDLE_FLOOD.launches
+    checked = fuzz(9, 8, 120, cuda_device)
+    assert checked >= 8 * 50 and tbundle.BUNDLE_FLOOD.launches - launches == 2 * checked // 8
