@@ -135,8 +135,8 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      launched exactly k x (64 + 1) times: once per shard per step, and once
      per shard for the seeding of the carried atari/ko planes each call
      makes; then, for the unsharded rollout and each k, 3 timed windows of
-     64 steps from the same boards, and for the unsharded rollout and k = 4
-     a device profile of 16 steps; (b)
+     64 steps from the same boards, and for k = 4 a device profile of 16
+     steps (24a profiles the unsharded step); (b)
      ``scripts.multiproc_worker`` as 2 ranks of 2 logical shards on the one
      card (gloo) at 19x19, B = 4096, 64 steps: both ranks' checksums equal a
      one-process rollout's; then 2 segments with rank 1 killed after segment
@@ -157,13 +157,33 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      cuda`` at 9x9 and 19x19, 16 games each, up to 300 steps: every state of
      every game after every step equal between the batched step on the card
      and the native engine (at least 3000 states), and 2 bundle launches per
-     step.
+     step;
+ 24. the measurement layer: (a) the step's ``GYMGO_ABLATE`` switches, each
+     alone, all six together, and ``sampler``, on phase 4's boards, between
+     two runs of the whole step: 3 timed windows of 64 steps, a 16-step
+     profile (device us/step, busy share, launches/step), the bundle
+     kernel's launches (one a step plus each call's seeding, none a step
+     under ``bundle``), and a 64-step B = 256 rollout replayed on the CPU
+     under the same switch; ``GYMGO_BITPACK_FIXED_ONLY`` must raise on CUDA
+     tensors without a launch; then the table of what each component costs
+     the step; (b) ``run_gumbel_mcts`` with the 128x6 net in bfloat16 at
+     B = 256, 32/16 under the ``GYMGO_GUMBEL_PACK`` layouts default,
+     ``i16,logp`` and ``i16,logp,bf16`` (legal actions, 32 visits, policies
+     summing to 1; card against CPU by phase 13's rule, counted only under
+     ``bf16``), then ``benchmarks.mcts_bench --batch-sweep 512,1024`` at
+     128x6 under each layout as subprocesses; (c) the three studies as
+     subprocesses: ``measure_convergence`` with 32 measured steps (the kernel's
+     word equal to the counted fixpoint on every env of every step) and its
+     ``--warm-study`` (fixpoint equality every step), ``walk_depth_study``
+     at 13x13 and at 19x19 128x6 (B = 64 and 512) side by side, then
+     ``search_cost_ablation`` at its 8x1 net and at 128x6.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
-20 the GTP front end, 22-23 the parallel layer and the soak; the launch
-counts are set to 0 before the search, each match, the training run, the
-``gogame`` game, the ``GoEnv`` games, phase 20 and each sharded rollout of
-22a, and read after.  After phase
+20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
+measurement layer; the launch counts are set to 0 before the search, each
+match, the training run, the ``gogame`` game, the ``GoEnv`` games, phase 20,
+each sharded rollout of 22a, each ablation's windows and each layout's
+search, and read after.  After phase
 15, a replay of the recipe's size takes one add of more rows than its
 capacity (81,920 into 65,536): every slot must hold one whole row, the last
 65,536 in order.
@@ -1223,10 +1243,12 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start(args):
-    """A subprocess from the root: ``args[0]`` a script (``*.py``) or a module."""
+def start(args, env=None):
+    """A subprocess from the root: ``args[0]`` a script (``*.py``) or a module;
+    ``env`` adds to this process's environment."""
     head = [sys.executable] if args[0].endswith(".py") else [sys.executable, "-m"]
-    return subprocess.Popen([*head, *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return subprocess.Popen([*head, *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=None if env is None else dict(os.environ, **env))
 
 
 def finish(name, procs, timeout):
@@ -1284,16 +1306,11 @@ def sharding_path(dev, states, bundle_lib, minmax_lib, workdir):
     cfg = EnvConfig(board_size=19, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
     plain = rollout(torch.Generator(device=dev).manual_seed(SEED + 22), states, STEPS, cfg)
     launches, rates = {}, {}
-    # the unsharded rollout timed and profiled the same way, in this phase, for the rates of each k
+    # the unsharded rollout timed the same way, in this phase, for the rates of each k (phase 24a
+    # profiles it on the same boards)
     rates[0], _, _ = timed_windows(rollout, torch.Generator(device=dev).manual_seed(SEED + 23), plain.final_states,
                                    cfg, STEPS, WINDOWS)
-    wall_us, rows = device_profile(lambda: rollout(torch.Generator(device=dev).manual_seed(SEED), states,
-                                                   PROF_STEPS, cfg))
-    busy_us = sum(row[0] for row in rows)
-    print(f"[22a logical shards] 19x19 B={B}, unsharded: {WINDOWS} windows: {rates_text(rates[0])}; profiled "
-          f"{PROF_STEPS} steps: wall {wall_us / PROF_STEPS:.1f} us/step, device busy "
-          f"{busy_us / PROF_STEPS:.1f} us/step ({100 * busy_us / wall_us:.1f}%), "
-          f"{sum(row[1] for row in rows) / PROF_STEPS:.1f} kernel launches/step", flush=True)
+    print(f"[22a logical shards] 19x19 B={B}, unsharded: {WINDOWS} windows: {rates_text(rates[0])}", flush=True)
     for k in (1, 2, 4):
         env = ShardedGoEnv(cfg, make_mesh(devices=[dev] * k))
         torch.cuda.synchronize()
@@ -1486,6 +1503,228 @@ def soak():
           f"torch == native on every one; bundle launches {rec['bundle_launches']} (2 per step); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rec["bundle_launches"]
+
+
+STEP_TOKENS = ("hit", "ko", "capsum", "bundle", "areas", "invd")
+
+
+def ablation_path(dev, states, bundle_lib, minmax_lib):
+    """Phase 24a: the step's cost split by its ``GYMGO_ABLATE`` switches, on
+    phase 4's steady-state 19x19 B = 12288 boards.  Returns the bundle
+    kernel's launches in each ablation's timed windows, read after them with
+    the counts set to 0 before."""
+    from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
+    from gymgo_tpu_torch.core import flood as tflood
+    from gymgo_tpu_torch.core import step as tstep
+    from gymgo_tpu_torch.env.batch_env import rollout
+
+    t_phase = time.perf_counter()
+    B, N, WINDOW, REPEATS, PROF, B_R, STEPS_R = 12288, 19, 64, 3, 16, 256, 64
+    cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+    cfg_r = EnvConfig(board_size=N, batch_size=B_R, reward_method=HEURISTIC, auto_reset=True)
+    # the whole step first and last: its drift over the phase shows beside the savings
+    configs = ([("whole step", ())] + [(t, (t,)) for t in STEP_TOKENS]
+               + [("all six", STEP_TOKENS), ("sampler", ("sampler",)), ("whole step again", ())])
+    table, launches = [], {}
+    for label, tokens in configs:
+        previous = tstep.set_ablate(tokens)
+        try:
+            gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+            rollout(gen, states, 4, cfg)
+            torch.cuda.synchronize()
+            bundle_lib.launches = minmax_lib.launches = 0
+            rates, _, _ = timed_windows(rollout, gen, states, cfg, WINDOW, REPEATS)
+            per_step = 0 if "bundle" in tokens else 1
+            expected = REPEATS * (WINDOW * per_step + 1)  # a step's flood, and each call's seeding
+            if bundle_lib.launches != expected or minmax_lib.launches != 0:
+                fail(f"24a {label}: bundle launches {bundle_lib.launches} (expected {expected}), "
+                     f"min/max {minmax_lib.launches}")
+            launches[label] = bundle_lib.launches
+            wall_us, rows = device_profile(lambda: rollout(gen, states, PROF, cfg))
+            # the same ablation replayed with its actions on the CPU plain path
+            start_r = states[:B_R].clone()
+            rc = rollout(torch.Generator(device=dev).manual_seed(SEED + 25), start_r, STEPS_R, cfg_r)
+            acts = iter(rc.actions.cpu())
+            rh = rollout(torch.Generator().manual_seed(0), start_r.cpu(), STEPS_R, cfg_r,
+                         policy_fn=lambda _g, _s: next(acts))
+            for field in ("final_states", "rewards", "dones"):
+                if not torch.equal(getattr(rc, field).cpu(), getattr(rh, field)):
+                    fail(f"24a {label}: card and CPU replay disagree on {field}")
+        finally:
+            tstep.set_ablate(previous)
+        busy = sum(r[0] for r in rows) / PROF
+        if busy <= 0:
+            fail(f"24a {label}: the profile of {PROF} steps shows no device time")
+        row = (label, B * 1e6 / statistics.median(rates), wall_us / PROF, busy,
+               sum(r[1] for r in rows) / PROF)
+        table.append(row)
+        print(f"[24a ablation] {label}: 19x19 B={B}, {REPEATS} windows of {WINDOW} steps from phase 4's boards: "
+              f"{rates_text(rates)}; bundle launches {launches[label]} (= {REPEATS} x ({WINDOW} x {per_step} "
+              f"+ 1)); profiled {PROF} steps: wall {row[2]:.1f} us/step, device busy "
+              f"{busy:.1f} us/step ({100 * busy * PROF / wall_us:.1f}%), {row[4]:.1f} kernel launches/step; "
+              f"{STEPS_R}-step B={B_R} replay on the CPU: == card", flush=True)
+
+    # GYMGO_BITPACK_FIXED_ONLY truncates the plain flood; the kernel has no substeps to truncate
+    previous = tflood.set_bitpack_fixed_only(16)
+    bundle_lib.launches = 0
+    try:
+        rollout(torch.Generator(device=dev).manual_seed(SEED), states[:64], 1, cfg_r)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        fail("24a: GYMGO_BITPACK_FIXED_ONLY did not raise on CUDA tensors")
+    finally:
+        tflood.set_bitpack_fixed_only(previous)
+    if bundle_lib.launches != 0:
+        fail(f"24a: the bundle kernel launched {bundle_lib.launches} times under GYMGO_BITPACK_FIXED_ONLY")
+    print(f"[24a FIXED_ONLY] GYMGO_BITPACK_FIXED_ONLY=1 on CUDA tensors: ValueError, no launch ({refused[:90]}...)",
+          flush=True)
+
+    whole = [(a + b) / 2 for a, b in zip(table[0][1:], table[-1][1:])]
+    whole = (None, *whole)
+    print("[24a decomposition] what each component costs the step, against the mean of the two whole-step runs "
+          "of this call (host wall from the windows' median; device busy and launches from the profiled "
+          "steps):", flush=True)
+    print("[24a decomposition] | ablated | wall us/step | saved | profiled wall us/step | device us/step | "
+          "saved | launches/step | saved |", flush=True)
+    for label, wall, prof_wall, busy, n_k in table:
+        print(f"[24a decomposition] | {label} | {wall:.1f} | {whole[1] - wall:.1f} | {prof_wall:.1f} | {busy:.1f} | "
+              f"{whole[3] - busy:.1f} | {n_k:.1f} | {whole[4] - n_k:.1f} |", flush=True)
+    print(f"[24a ablations] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def layouts_path(dev, states, bundle_lib, minmax_lib):
+    """Phase 24b: the Gumbel search under the ``GYMGO_GUMBEL_PACK`` layouts
+    of the JAX package's table (the default, ``i16,logp``,
+    ``i16,logp,bf16``): at full width on the card, the card against the CPU,
+    and the search bench's B = 512 -> 1024 sweep as subprocesses.  Returns
+    each layout's bundle launches in one search, read after it with the
+    counts set to 0 before."""
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core.actions import batch_valid_moves, gumbel_noise
+    from gymgo_tpu_torch.rl import gumbel_mcts as tgumbel
+
+    t_phase = time.perf_counter()
+    SIMS, CONSIDERED, B, B_R, SIMS_R = 32, 16, 256, 32, 16
+    layouts = [("default", ()), ("i16,logp", ("i16", "logp")), ("i16,logp,bf16", ("i16", "logp", "bf16"))]
+    net16 = load_aznet_npz(NET_19, device=dev, dtype=torch.bfloat16)
+    net32 = load_aznet_npz(NET_19, device=dev, dtype=torch.float32)
+    net_cpu = load_aznet_npz(NET_19, device="cpu", dtype=torch.float32)
+    roots = states[:B].clone()
+    valid = batch_valid_moves(roots) > 0
+    noise = gumbel_noise(torch.Generator(device=dev).manual_seed(SEED + 14), (B_R, 19 * 19 + 1), dev)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    launches = {}
+    for label, tokens in layouts:
+        previous = tgumbel.set_gumbel_pack(tokens)
+        try:
+            def search():
+                gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+                return tgumbel.run_gumbel_mcts(gen, roots, net16, num_simulations=SIMS, max_considered=CONSIDERED)
+
+            search()
+            torch.cuda.synchronize()
+            bundle_lib.launches = minmax_lib.launches = 0
+            t0 = time.perf_counter()
+            res = search()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[label] = bundle_lib.launches
+            if bundle_lib.launches != 2 * SIMS or minmax_lib.launches != 0:
+                fail(f"24b {label}: {bundle_lib.launches} bundle launches (expected {2 * SIMS}), "
+                     f"{minmax_lib.launches} min/max")
+            if not bool(valid.gather(1, res.actions.long()[:, None]).all()):
+                fail(f"24b {label}: the search returned an illegal action")
+            if not bool((res.root_visits.sum(1) == SIMS).all()):
+                fail(f"24b {label}: root visits do not sum to {SIMS}")
+            if not (bool(((res.improved_policy.sum(1) - 1).abs() < 1e-4).all())
+                    and bool((res.improved_policy[~valid] == 0).all())
+                    and bool(torch.isfinite(res.root_value).all())):
+                fail(f"24b {label}: improved policy does not sum to 1 over the valid moves, or a value is not finite")
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                on_card = tgumbel.run_gumbel_mcts(None, roots[:B_R], net32, num_simulations=SIMS_R,
+                                                  max_considered=CONSIDERED, gumbel=noise)
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+            on_cpu = tgumbel.run_gumbel_mcts(None, roots[:B_R].cpu(), net_cpu, num_simulations=SIMS_R,
+                                             max_considered=CONSIDERED, gumbel=noise.cpu())
+        finally:
+            tgumbel.set_gumbel_pack(previous)
+        differ = int(((on_card.actions.cpu() != on_cpu.actions)
+                      | (on_card.root_visits.cpu() != on_cpu.root_visits).any(1)).sum())
+        if "bf16" not in tokens and differ > 1:
+            fail(f"24b {label}: {differ} of {B_R} envs differ between the card and the CPU")
+        rule = ("counted, not required (bfloat16 sums)" if "bf16" in tokens
+                else "at most 1 allowed: a float near-tie may flip a visit")
+        print(f"[24b layout {label}] 19x19 128x6 bfloat16, B={B}, {SIMS}/{CONSIDERED}: {B / wall:.1f} searches/s, "
+              f"{1e3 * wall / SIMS:.3f} ms/simulation, legal actions, {SIMS} visits, policies sum to 1; bundle "
+              f"launches {launches[label]}; B={B_R}, {SIMS_R} simulations, float32 (TF32 off), injected noise: "
+              f"card vs CPU differ on {differ} of {B_R} envs ({rule}); max |diff| improved policy "
+              f"{float((on_card.improved_policy.cpu() - on_cpu.improved_policy).abs().max()):.3g}", flush=True)
+
+    sweep = {}
+    for label, tokens in layouts:
+        t0 = time.perf_counter()
+        out = finish(f"24b mcts_bench {label}", [start(
+            ["gymgo_tpu_torch.benchmarks.mcts_bench", "--search", "gumbel", "--channels", "128", "--blocks", "6",
+             "--batch-sweep", "512,1024", "--repeats", "3"], env={"GYMGO_GUMBEL_PACK": ",".join(tokens)})], 600)[0]
+        rows = [ln for ln in out.splitlines() if ln.startswith("| ") and ln[2].isdigit()]
+        if [int(r.split("|")[1]) for r in rows] != [512, 1024]:
+            fail(f"24b mcts_bench {label}: {out[-1500:]}")
+        sweep[label] = [float(r.split("|")[2]) for r in rows]
+        for row in rows:
+            print(f"[24b mcts_bench {label}] {row} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print("[24b layouts] | layout | B=512 ms | B=1024 ms | B=1024 decisions/s | 2x-batch time ratio |", flush=True)
+    for label, (ms512, ms1024) in sweep.items():
+        print(f"[24b layouts] | {label} | {ms512:.1f} | {ms1024:.1f} | {1024 / ms1024 * 1e3:,.0f} | "
+              f"{ms1024 / ms512:.2f}x |", flush=True)
+    print(f"[24b layouts] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def studies():
+    """Phase 24c: the three measurement scripts as subprocesses on the card.
+    The two that count (convergence, walk depth) run side by side; the one
+    that times (search_cost_ablation) runs alone.  Returns the bundle
+    launches of ``measure_convergence``'s steps."""
+    t_phase = time.perf_counter()
+    MEASURE_STEPS = 32  # the script's 64 cut to keep the run in its time limit
+    names = ["measure_convergence", "measure_convergence --warm-study", "walk_depth_study 13x13",
+             "walk_depth_study 19x19 128x6"]
+    outs = finish("24c studies", [
+        start(["gymgo_tpu_torch.scripts.measure_convergence", "--measure-steps", str(MEASURE_STEPS)]),
+        start(["gymgo_tpu_torch.scripts.measure_convergence", "--measure-steps", str(MEASURE_STEPS),
+               "--warm-study"]),
+        start(["gymgo_tpu_torch.scripts.walk_depth_study"]),
+        start(["gymgo_tpu_torch.scripts.walk_depth_study", "--board", "19", "--channels", "128", "--blocks", "6",
+               "--batches", "64,512"]),
+    ], 600)
+    recs = [json_line(out) for out in outs]
+    conv, warm = recs[0], recs[1]
+    if not (conv["kernel_checked_steps"] == MEASURE_STEPS and conv["kernel_mismatch_steps"] == 0
+            and conv["step_launches"] == MEASURE_STEPS + 1):
+        fail(f"24c measure_convergence: {conv}")
+    if not (warm["fixpoint_equal_every_step"] and warm["equal_steps"] == MEASURE_STEPS):
+        fail(f"24c measure_convergence --warm-study: {warm}")
+    for name, out in zip(names, outs):
+        for line in out.strip().splitlines():
+            print(f"[24c {name}] {line}", flush=True)
+    print(f"[24c] counted studies side by side {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for width in ([], ["--channels", "128", "--blocks", "6"]):
+        t0 = time.perf_counter()
+        out = finish("24c search_cost_ablation", [start(["gymgo_tpu_torch.scripts.search_cost_ablation", *width])],
+                     600)[0]
+        rec = json_line(out)
+        if len(rec["components"]) != 6 or not all("launches_per_sim" in c for c in rec["components"]):
+            fail(f"24c search_cost_ablation {width}: {rec}")
+        for line in out.strip().splitlines():
+            print(f"[24c search_cost_ablation {rec['channels']}x{rec['blocks']}] {line}", flush=True)
+        print(f"[24c search_cost_ablation {rec['channels']}x{rec['blocks']}] {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"[24c studies] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"measure_convergence": conv["step_launches"]}
 
 
 def main() -> int:
@@ -1700,6 +1939,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         sharded_launches, _ = sharding_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD, Path(workdir))
     soak_launches = soak()
+    ablation_launches = ablation_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    layout_launches = layouts_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    study_launches = studies()
 
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
@@ -1715,6 +1957,9 @@ def main() -> int:
         "launches_gtp": gtp_launches,
         "launches_sharded": {f"{k} shards": n for k, n in sharded_launches.items()},
         "launches_soak": soak_launches,
+        "launches_ablations": ablation_launches,
+        "launches_layouts": layout_launches,
+        "launches_studies": study_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,

@@ -32,6 +32,16 @@ Routes.  As in the JAX package, ``GYMGO_FLOOD`` (read at import; default
 the bundle flood, every other value the minmax route
 (``flood_bundle_from_parts``: the min/max classification plus a separate
 two-bit claim flood).  ``set_flood_route`` re-binds them inside a process.
+
+Truncation.  ``GYMGO_BITPACK_FIXED_ONLY=1`` (read at import with
+``GYMGO_BITPACK_PREFIX``, default 16, as in the JAX package) makes
+``bundle_flood_plain`` run exactly ``PREFIX // 2`` rounds of (forward,
+reverse) substeps and stop, converged or not: JAX's schedule, so the word
+equals ``flood_bundle_bitpack``'s under the same switch.  It takes the flood's
+convergence out of a cost decomposition; results are wrong by design.  The
+CUDA kernel labels components and has no substeps to cut short, so the
+bundle flood raises on CUDA tensors while it is set.
+``set_bitpack_fixed_only`` switches it inside a process.
 """
 
 from __future__ import annotations
@@ -55,11 +65,13 @@ __all__ = [
     "liberty_classes_from_minmax",
     "liberty_classes_bitpack",
     "bundle_seed_and_gates",
+    "bundle_substep",
     "bundle_flood_plain",
     "unpack_bundle",
     "flood_bundle",
     "flood_bundle_from_parts",
     "set_flood_route",
+    "set_bitpack_fixed_only",
     "flood_or_best",
     "liberty_classification_best",
     "flood_bundle_best",
@@ -77,6 +89,22 @@ _DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 # Substeps between the plain floods' convergence checks (each check syncs
 # with the host); substeps past the fixpoint are no-ops.
 _UNROLL = 4
+# GYMGO_BITPACK_FIXED_ONLY: the prefix of substeps the plain bundle flood runs
+# and stops after, or None (the flood runs to its fixpoint).
+fixed_only_prefix = (int(os.environ.get("GYMGO_BITPACK_PREFIX", "16"))
+                     if os.environ.get("GYMGO_BITPACK_FIXED_ONLY") == "1" else None)
+
+
+def set_bitpack_fixed_only(prefix):
+    """Truncate the plain bundle flood to ``prefix // 2`` rounds of (forward,
+    reverse) substeps (``GYMGO_BITPACK_FIXED_ONLY=1`` with
+    ``GYMGO_BITPACK_PREFIX=prefix``), or, with ``None``, let it converge;
+    returns the value in force before."""
+    global fixed_only_prefix
+    if prefix is not None and (isinstance(prefix, bool) or not isinstance(prefix, int) or prefix < 0):
+        raise ValueError(f"prefix must be None or an int >= 0, got {prefix!r}")
+    previous, fixed_only_prefix = fixed_only_prefix, prefix
+    return previous
 
 
 def shift(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
@@ -280,6 +308,18 @@ def bundle_seed_and_gates(mover: torch.Tensor, opp: torch.Tensor):
     return seed, gates
 
 
+def bundle_substep(x: torch.Tensor, gates, reverse: bool = False) -> torch.Tensor:
+    """One substep of the bundle flood: each direction in turn (later ones see
+    the earlier ones' updates) ORs into a cell the word of its neighbour in
+    that direction, within same-class runs.  ``gates`` are
+    ``bundle_seed_and_gates``' four; the order is JAX's forward one, or its
+    reverse."""
+    steps = list(zip(_DIRS, gates))
+    for (dr, dc), gate in (reversed(steps) if reverse else steps):
+        x = x | torch.where(gate, shift(x, dr, dc, 0), 0)
+    return x
+
+
 def bundle_flood_plain(mover: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
     """Converged bundle word, int32 ``(B, N, N)``; plain PyTorch version.
 
@@ -294,17 +334,22 @@ def bundle_flood_plain(mover: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
     flooded within same-class runs (mover-mover, opp-opp, empty-empty) to the
     fixpoint.  The fixpoint is unique, so the order of propagation does not
     matter.  Checks convergence on the host, so it syncs with the device.
+    Under ``GYMGO_BITPACK_FIXED_ONLY`` it runs JAX's fixed prefix instead (see
+    the module's docstring) and makes no check.
     """
     if mover.shape[-1] * mover.shape[-2] > MAX_BUNDLE_CELLS:
         raise ValueError(
             f"bundle flood needs N*N <= {MAX_BUNDLE_CELLS}, got {tuple(mover.shape)}"
         )
     x, gates = bundle_seed_and_gates(mover, opp)
+    if fixed_only_prefix is not None:
+        for _ in range(fixed_only_prefix // 2):
+            x = bundle_substep(bundle_substep(x, gates), gates, reverse=True)
+        return x
     while True:
         nx = x
         for _ in range(_UNROLL):
-            for (dr, dc), gate in zip(_DIRS, gates):
-                nx = nx | torch.where(gate, shift(nx, dr, dc, 0), 0)
+            nx = bundle_substep(nx, gates)
         if torch.equal(nx, x):
             return x
         x = nx

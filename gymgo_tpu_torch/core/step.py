@@ -22,10 +22,21 @@ Algorithm (the same as the JAX package's, so results agree bit for bit):
   next step's ``atari`` plane.
 * One packed uint8 dilation turns the classes into the next player's invalid
   mask (suicide rule) and the next step's ko-surround map.
+
+Ablation.  ``GYMGO_ABLATE`` (read at import, a comma list, as in the JAX
+package) names step components to skip so that the step's cost can be taken
+apart: ``hit`` (the invalid-move probe), ``ko`` (the ko probe), ``capsum``
+(the capture count and the ko point), ``bundle`` (the post-move flood; the
+stateless CUDA path still classifies the board before the move), ``areas``
+(the area sums) and ``invd`` (the invalid-mask dilation).  Each puts in the
+JAX package's stand-in values, so an ablated step is wrong by design but
+equal to the JAX package's ablated step.  ``set_ablate`` switches them inside
+a process; ``rollout`` reads ``sampler`` too (all actions 0).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,7 +55,27 @@ __all__ = [
     "invalid_action_flags",
     "init_atari",
     "init_ko_surr",
+    "ABLATE_TOKENS",
+    "set_ablate",
 ]
+
+# The GYMGO_ABLATE tokens: the step's six, and the rollout's sampler.
+ABLATE_TOKENS = ("hit", "ko", "capsum", "bundle", "areas", "invd", "sampler")
+ablate = frozenset(x for x in os.environ.get("GYMGO_ABLATE", "").split(",") if x)
+
+
+def set_ablate(tokens) -> frozenset:
+    """Skip the step components named in ``tokens`` (an iterable of
+    ``ABLATE_TOKENS``; empty restores the whole step) in every later step of
+    the process; returns the set in force before.  Results are wrong by
+    design while any is set."""
+    global ablate
+    tokens = frozenset(tokens)
+    unknown = tokens.difference(ABLATE_TOKENS)
+    if unknown:
+        raise ValueError(f"unknown GYMGO_ABLATE tokens {sorted(unknown)}; known: {ABLATE_TOKENS}")
+    previous, ablate = ablate, tokens
+    return previous
 
 
 class StepInfo(NamedTuple):
@@ -183,7 +214,7 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     def at_place(plane):
         return plane.reshape(b, m).gather(1, board_idx[:, None])[:, 0] & not_pass
 
-    invalid_action = oob | at_place(ps.invd)
+    invalid_action = oob if "hit" in ablate else oob | at_place(ps.invd)
 
     wtm = white_to_move[:, None, None]
     mover = torch.where(wtm, white, black) | place
@@ -191,7 +222,9 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
 
     # Ko probe, pre-capture: every in-bounds neighbour of the move is an
     # opponent stone.
-    if ps.ko_surr is not None:
+    if "ko" in ablate:
+        surrounded_pre = is_pass
+    elif ps.ko_surr is not None:
         surrounded_pre = at_place(ps.ko_surr)
     else:
         surrounded_pre = at_place(_surrounded_by(opp))
@@ -221,47 +254,61 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     # Capture count (bits 18+) and the sole captured cell's index (bits 0-17)
     # in one reduction; the index is exact whenever one stone died, the only
     # case ko reads it.
-    kill_word = torch.where(killed, cell_idx + (1 << 18), 0)
-    kill_sum = kill_word.view(b, m).sum(1, dtype=torch.int32)
-    num_captured = kill_sum >> 18
-    ko_flat = kill_sum & ((1 << 18) - 1)
+    if "capsum" in ablate:
+        num_captured = ko_flat = torch.zeros((b,), dtype=torch.int32, device=dev)
+    else:
+        kill_word = torch.where(killed, cell_idx + (1 << 18), 0)
+        kill_sum = kill_word.view(b, m).sum(1, dtype=torch.int32)
+        num_captured = kill_sum >> 18
+        ko_flat = kill_sum & ((1 << 18) - 1)
     ko_active = (num_captured == 1) & surrounded_pre
 
-    one_lib, multi_lib, only_mover, only_opp, atari_enc = _flood.flood_bundle_best(
-        mover.contiguous(), opp.contiguous()
-    )
+    if "bundle" in ablate:
+        one_lib, multi_lib, only_mover, only_opp = all_pieces, empty, empty, empty
+        atari_enc = torch.zeros((b, n, n), dtype=torch.int16, device=dev)
+    else:
+        one_lib, multi_lib, only_mover, only_opp, atari_enc = _flood.flood_bundle_best(
+            mover.contiguous(), opp.contiguous()
+        )
 
-    # Both Trump-Taylor areas in one reduction (area <= N*N < 2^10).
-    area_word = ((mover | only_mover).to(torch.int32) << 10) | (opp | only_opp).to(torch.int32)
-    area_sum = area_word.view(b, m).sum(1, dtype=torch.int32)
-    mover_area = area_sum >> 10
-    opp_area = area_sum & ((1 << 10) - 1)
+    if "areas" in ablate:
+        mover_area = opp_area = torch.zeros((b,), dtype=torch.int32, device=dev)
+    else:
+        # Both Trump-Taylor areas in one reduction (area <= N*N < 2^10).
+        area_word = ((mover | only_mover).to(torch.int32) << 10) | (opp | only_opp).to(torch.int32)
+        area_sum = area_word.view(b, m).sum(1, dtype=torch.int32)
+        mover_area = area_sum >> 10
+        opp_area = area_sum & ((1 << 10) - 1)
     black_area = torch.where(mover_is_white, opp_area, mover_area)
     white_area = torch.where(mover_is_white, mover_area, opp_area)
 
     white_to_move_next = white_to_move ^ ~frozen
 
-    # One packed uint8 dilation: bits 0 atari_mover, 1 multi_mover, 2
-    # atari_opp, 3 multi_opp, 4 empty, 5 non-mover, 6 non-opp.  A clear
-    # dilated bit 4 means no in-bounds neighbour is empty (the reference's
-    # edge-as-wall surround test); clear bits 5/6 mean every in-bounds
-    # neighbour is a mover / opp stone (next step's ko-surround map).
-    cls = one_lib.to(torch.uint8) | (multi_lib.to(torch.uint8) << 1)
-    packed_cls = torch.where(mover, cls, torch.where(opp, cls << 2, 16))
-    packed_cls |= ((~mover).to(torch.uint8) << 5) | ((~opp).to(torch.uint8) << 6)
-    dil = neighbor_or(packed_cls)
-    possible = empty & ((dil & 6) != 0)  # next to multi_mover | atari_opp
-    definite = (dil & 9) != 0  # next to atari_mover | multi_opp
-    surrounded_cells = (dil & 16) == 0
-    invd = all_pieces | (possible & ~definite & surrounded_cells)
-    invd |= (cell_idx == ko_flat[:, None, None]) & ko_active[:, None, None]
-    all_nb_mover = (dil & 32) == 0
-    all_nb_opp = (dil & 64) == 0
-    miw = mover_is_white[:, None, None]
-    all_nb_black = torch.where(miw, all_nb_opp, all_nb_mover)
-    all_nb_white = torch.where(miw, all_nb_mover, all_nb_opp)
-    # the next step's opponent is black iff white moves next
-    ko_surr_next = torch.where(white_to_move_next[:, None, None], all_nb_black, all_nb_white)
+    if "invd" in ablate:
+        invd = all_pieces
+        ko_surr_next = torch.zeros_like(black)
+    else:
+        # One packed uint8 dilation: bits 0 atari_mover, 1 multi_mover, 2
+        # atari_opp, 3 multi_opp, 4 empty, 5 non-mover, 6 non-opp.  A clear
+        # dilated bit 4 means no in-bounds neighbour is empty (the reference's
+        # edge-as-wall surround test); clear bits 5/6 mean every in-bounds
+        # neighbour is a mover / opp stone (next step's ko-surround map).
+        cls = one_lib.to(torch.uint8) | (multi_lib.to(torch.uint8) << 1)
+        packed_cls = torch.where(mover, cls, torch.where(opp, cls << 2, 16))
+        packed_cls |= ((~mover).to(torch.uint8) << 5) | ((~opp).to(torch.uint8) << 6)
+        dil = neighbor_or(packed_cls)
+        possible = empty & ((dil & 6) != 0)  # next to multi_mover | atari_opp
+        definite = (dil & 9) != 0  # next to atari_mover | multi_opp
+        surrounded_cells = (dil & 16) == 0
+        invd = all_pieces | (possible & ~definite & surrounded_cells)
+        invd |= (cell_idx == ko_flat[:, None, None]) & ko_active[:, None, None]
+        all_nb_mover = (dil & 32) == 0
+        all_nb_opp = (dil & 64) == 0
+        miw = mover_is_white[:, None, None]
+        all_nb_black = torch.where(miw, all_nb_opp, all_nb_mover)
+        all_nb_white = torch.where(miw, all_nb_mover, all_nb_opp)
+        # the next step's opponent is black iff white moves next
+        ko_surr_next = torch.where(white_to_move_next[:, None, None], all_nb_black, all_nb_white)
 
     new_ps = PlanesState(
         black=torch.where(fz, black, torch.where(wtm, opp, mover)),

@@ -187,9 +187,17 @@ def rollout(
     lists of this process's shards when the mesh spans processes.
     """
     sample = policy_fn is None
+    # GYMGO_ABLATE=sampler: every action 0, nothing drawn (the sampler's cost
+    # taken out of the step; results wrong by design)
+    no_sampler = sample and "sampler" in _step.ablate
 
     def move(ps, x):
-        acts = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1)) if sample else x
+        if no_sampler:
+            acts = torch.zeros(ps.done.shape, dtype=torch.int32, device=ps.done.device)
+        elif sample:
+            acts = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1))
+        else:
+            acts = x
         ps, info = _step.step_planes(ps, acts)
         return ps, acts, reward_from_areas(info.black_area, info.white_area, ps.done, config), info.invalid_action
 
@@ -216,7 +224,9 @@ def rollout(
         if config.auto_reset:
             for ps in shards:
                 _reset_finished(ps)
-        if sample:
+        if no_sampler:
+            x = [None] * len(shards)
+        elif sample:
             x = _actions.draw_words(generator, (batch,), generator.device)
         else:
             local = [_step.states_from_planes(ps) for ps in shards]

@@ -13,8 +13,17 @@ the halving winner (no sampling noise beyond the root Gumbels).
 The simulator is the exact env step (one ``step_states`` per simulation, so
 one launch of the flood kernel of the step and one of its seed), the whole
 search is batched over envs, and the tree lives in fixed-shape tensors: node 0
-is the root and simulation i expands slot i + 1.  Only the JAX package's
-default tree layout (float32 / int32) is here.
+is the root and simulation i expands slot i + 1.
+
+Tree layouts.  The default stores visits as int32 and priors and value sums as
+float32.  ``GYMGO_GUMBEL_PACK`` (read at import, a comma list, as in the JAX
+package; ``set_gumbel_pack`` switches it inside a process) narrows the
+(B, nodes, A) tables for search at large B: ``i16`` stores visits as int16
+(simulations <= 32767), ``bf16`` stores the value sums (and the log-priors
+under ``logp``) as bfloat16, computing q in float32 (the backup rounds to
+bfloat16, so results move), and ``logp`` stores log-softmax priors plus a bool
+validity plane, which takes the log over the whole prior table out of every
+simulation.
 
 Ties are resolved as in JAX so that, given the same Gumbel noise, both
 packages search the same tree: the top-k and the rank of the candidates come
@@ -26,6 +35,7 @@ the first of equals in both.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -36,7 +46,24 @@ from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.rl import treewalk as _treewalk
 
-__all__ = ["GumbelMCTSResult", "seq_halving_schedule", "run_gumbel_mcts", "make_gumbel_mcts_policy"]
+__all__ = ["GumbelMCTSResult", "seq_halving_schedule", "run_gumbel_mcts", "make_gumbel_mcts_policy",
+           "PACK_TOKENS", "set_gumbel_pack"]
+
+PACK_TOKENS = ("i16", "bf16", "logp")
+pack = frozenset(t for t in os.environ.get("GYMGO_GUMBEL_PACK", "").split(",") if t)
+
+
+def set_gumbel_pack(tokens) -> frozenset:
+    """Use the tree layout of ``tokens`` (an iterable of ``PACK_TOKENS``;
+    empty is the default layout) in every later search of the process;
+    returns the set in force before."""
+    global pack
+    tokens = frozenset(tokens)
+    unknown = tokens.difference(PACK_TOKENS)
+    if unknown:
+        raise ValueError(f"unknown GYMGO_GUMBEL_PACK tokens {sorted(unknown)}; known: {PACK_TOKENS}")
+    previous, pack = pack, tokens
+    return previous
 
 
 class GumbelMCTSResult(NamedTuple):
@@ -106,6 +133,9 @@ def run_gumbel_mcts(
     max_depth = num_simulations + 1
     schedule = seq_halving_schedule(num_simulations, m)
     neg_inf = -torch.inf
+    visit_dt = torch.int16 if "i16" in pack else torch.int32
+    wsum_dt = torch.bfloat16 if "bf16" in pack else torch.float32
+    use_logp = "logp" in pack
 
     def masked_policy(sts):
         logits, value = net(_transform.batch_canonical_form(sts))
@@ -132,10 +162,16 @@ def run_gumbel_mcts(
     node_done[:, 0] = _state.game_ended(states)
     node_value = torch.zeros((b, num_nodes), dtype=torch.float32, device=dev)
     node_value[:, 0] = root_value_net
-    prior = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
-    prior[:, 0] = torch.softmax(root_logits, dim=-1)
-    visit = torch.zeros((b, num_nodes, a_size), dtype=torch.int32, device=dev)
-    wsum = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
+    if use_logp:
+        prior = torch.full((b, num_nodes, a_size), neg_inf, dtype=wsum_dt, device=dev)
+        prior[:, 0] = torch.log_softmax(root_logits, dim=-1)
+        node_valid = torch.zeros((b, num_nodes, a_size), dtype=torch.bool, device=dev)
+        node_valid[:, 0] = valid_root
+    else:
+        prior = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
+        prior[:, 0] = torch.softmax(root_logits, dim=-1)
+    visit = torch.zeros((b, num_nodes, a_size), dtype=visit_dt, device=dev)
+    wsum = torch.zeros((b, num_nodes, a_size), dtype=wsum_dt, device=dev)
     child = torch.full((b, num_nodes, a_size), -1, dtype=torch.int32, device=dev)
 
     bidx = torch.arange(b, device=dev)
@@ -144,8 +180,8 @@ def run_gumbel_mcts(
 
     def root_candidate_stats():
         """Per-candidate (N, q) at the root; q from the root mover's view."""
-        cn = visit[:, 0].gather(1, cand)
-        cw = wsum[:, 0].gather(1, cand)
+        cn = visit[:, 0].gather(1, cand).to(torch.int32)
+        cw = wsum[:, 0].gather(1, cand).to(torch.float32)
         return cn, torch.where(cn > 0, cw / cn.clamp_min(1), 0.0)
 
     def candidate_scores(cq):
@@ -157,12 +193,16 @@ def run_gumbel_mcts(
         all (B, M) nodes at once (the statistics are frozen during one walk).
         completedQ(a) = q(a) when visited, else the node's own net value."""
         total = visit.sum(dim=-1, keepdim=True)
-        q = torch.where(visit > 0, wsum / visit.clamp_min(1).to(torch.float32), node_value[..., None])
-        logits_pi = torch.log(prior.clamp_min(1e-30))
+        q = torch.where(visit > 0, wsum.to(torch.float32) / visit.clamp_min(1).to(torch.float32),
+                        node_value[..., None])
+        if use_logp:
+            logits_pi, selectable = prior.to(torch.float32), node_valid
+        else:
+            logits_pi, selectable = torch.log(prior.clamp_min(1e-30)), prior > 0
         max_n = visit.amax(dim=-1, keepdim=True)
         improved = torch.softmax(logits_pi + _sigma(q, max_n, c_visit, c_scale), dim=-1)
         scores = improved - visit.to(torch.float32) / (1.0 + total)
-        return torch.where(prior > 0, scores, neg_inf)
+        return torch.where(selectable, scores, neg_inf)
 
     for sim in range(num_simulations):
         # ---- root action by sequential halving: among the top-`considered`
@@ -195,7 +235,7 @@ def run_gumbel_mcts(
         # comes from the step's own areas, not from a second scoring flood.
         new_states, step_info = _step.step_states(node_states[bidx, exp_parent], exp_action)
         slot = sim + 1
-        new_logits, new_values, _ = masked_policy(new_states)
+        new_logits, new_values, new_valid = masked_policy(new_states)
         new_done = _state.game_ended(new_states)
         win_black = torch.sign(
             step_info.black_area.to(torch.float32) - step_info.white_area.to(torch.float32) - komi
@@ -209,7 +249,12 @@ def run_gumbel_mcts(
         node_states[:, slot] = torch.where(write[:, None, None, None], new_states, 0)
         node_done[:, slot] = write & new_done
         node_value[:, slot] = torch.where(write, leaf_value, 0.0)
-        prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
+        if use_logp:
+            prior[:, slot] = torch.where(write[:, None], torch.log_softmax(new_logits, dim=-1).to(wsum_dt),
+                                         neg_inf)
+            node_valid[:, slot] = write[:, None] & new_valid
+        else:
+            prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
         child[bidx, exp_parent, exp_action] = torch.where(write, slot, prev_child)
         # A revisited child is terminal, so its stored value is its exact
         # outcome from its own mover's view: back that up again.
@@ -226,8 +271,9 @@ def run_gumbel_mcts(
                  torch.where(on_path, path_a, 0).to(torch.int64))
         steps_up = sel_depth[:, None] - 1 - depth_iota
         sign = torch.where(steps_up % 2 == 0, -1.0, 1.0)
-        visit.index_put_(index, on_path.to(torch.int32), accumulate=True)
-        wsum.index_put_(index, torch.where(on_path, sign * leaf_value[:, None], 0.0), accumulate=True)
+        visit.index_put_(index, on_path.to(visit_dt), accumulate=True)
+        wsum.index_put_(index, torch.where(on_path, sign * leaf_value[:, None], 0.0).to(wsum_dt),
+                        accumulate=True)
 
     # ---- outputs.
     cn, cq = root_candidate_stats()
@@ -237,14 +283,15 @@ def run_gumbel_mcts(
 
     # Improved policy over the full action space: completedQ(a) = q(a) for
     # visited root actions, the root's net value otherwise.
-    rn = visit[:, 0]
-    rq = torch.where(rn > 0, wsum[:, 0] / rn.clamp_min(1), root_value_net[:, None])
+    rn = visit[:, 0].to(torch.int32)
+    w0 = wsum[:, 0].to(torch.float32)
+    rq = torch.where(rn > 0, w0 / rn.clamp_min(1), root_value_net[:, None])
     improved_logits = root_logits + _sigma(rq, max_n, c_visit, c_scale)
     improved = torch.softmax(torch.where(valid_root, improved_logits, neg_inf), dim=-1)
     # Root value: the visit-weighted mean of completed Q (the net's value
     # with no visits).
     total_n = rn.sum(dim=1)
-    root_q = torch.where(total_n > 0, wsum[:, 0].sum(dim=1) / total_n.clamp_min(1), root_value_net)
+    root_q = torch.where(total_n > 0, w0.sum(dim=1) / total_n.clamp_min(1), root_value_net)
     return GumbelMCTSResult(
         actions=actions.to(torch.int32),
         improved_policy=improved,

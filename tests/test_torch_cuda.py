@@ -1,11 +1,13 @@
 """The port on a CUDA card: each flood kernel against its plain version, on the
 rollout of its route, and on bad input; the stateless step, the area score,
-the net and the search against the CPU plain path.  Imports no JAX, so it runs on a machine without
+the net and the search against the CPU plain path; the step's ablation
+switches and ``measure_convergence``'s kernel check.  Imports no JAX, so it runs on a machine without
 it (``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``); every
 test skips where there is no card.
 """
 
 import contextlib
+import json
 from pathlib import Path
 
 import numpy as np
@@ -487,3 +489,71 @@ def test_fuzz_soak_on_the_card(cuda_device):
     launches = tbundle.BUNDLE_FLOOD.launches
     checked = fuzz(9, 8, 120, cuda_device)
     assert checked >= 8 * 50 and tbundle.BUNDLE_FLOOD.launches - launches == 2 * checked // 8
+
+
+_ABLATIONS = [("hit",), ("ko",), ("capsum",), ("bundle",), ("areas",), ("invd",),
+              ("hit", "ko", "capsum", "bundle", "areas", "invd"), ("sampler",)]
+
+
+@pytest.mark.parametrize("tokens", _ABLATIONS, ids="+".join)
+def test_ablated_step_on_the_card_matches_cpu(tokens, cuda_device):
+    """Under each GYMGO_ABLATE switch (results wrong by design): the rollout
+    on the card replayed on the CPU with its actions, and the stateless step
+    on the card against the CPU's; the bundle kernel launched once a step plus
+    the seeding, none a step under ``bundle``, and the stateless step's
+    classification of the board before the move kept."""
+    cfg = EnvConfig(board_size=9, batch_size=96, reward_method="heuristic", auto_reset=True)
+    start = rollout(torch.Generator(device=cuda_device).manual_seed(3), batch_init_state(96, 9, device=cuda_device),
+                    40, cfg).final_states
+    acts_cpu = torch.from_numpy(np.random.default_rng(3).integers(0, 82, 96).astype(np.int32))
+    previous = tstep.set_ablate(tokens)
+    try:
+        launches = tbundle.BUNDLE_FLOOD.launches
+        r = rollout(torch.Generator(device=cuda_device).manual_seed(4), start, 48, cfg)
+        per_step = 0 if "bundle" in tokens else 1
+        assert tbundle.BUNDLE_FLOOD.launches - launches == 48 * per_step + 1
+        acts = iter(r.actions.cpu())
+        rc = rollout(torch.Generator(), start.cpu(), 48, cfg, policy_fn=lambda _g, _s: next(acts))
+        for field in ("final_states", "rewards", "dones", "invalid"):
+            assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
+        launches = tbundle.BUNDLE_FLOOD.launches
+        got, got_info = tstep.step_states(start, acts_cpu.to(cuda_device))
+        assert tbundle.BUNDLE_FLOOD.launches - launches == 1 + per_step
+        want, want_info = tstep.step_states(start.cpu(), acts_cpu)
+    finally:
+        tstep.set_ablate(previous)
+    assert torch.equal(got.cpu(), want)
+    for name in want_info._fields:
+        assert torch.equal(getattr(got_info, name).cpu(), getattr(want_info, name)), name
+
+
+def test_fixed_only_raises_on_cuda_tensors(cuda_device):
+    """The kernel has no substeps to truncate: under GYMGO_BITPACK_FIXED_ONLY
+    the bundle flood refuses CUDA tensors, and so does every step over it."""
+    a, b = _boards_on(cuda_device, 9, 5)
+    states = batch_init_state(4, 9, device=cuda_device)
+    previous = tflood.set_bitpack_fixed_only(2)
+    try:
+        launches = tbundle.BUNDLE_FLOOD.launches
+        for call in (lambda: tflood.flood_bundle(a, b), lambda: tbundle.bundle_flood(a, b),
+                     lambda: tstep.step_states(states, torch.zeros(4, dtype=torch.int32, device=cuda_device))):
+            with pytest.raises(ValueError, match="FIXED_ONLY"):
+                call()
+        assert tbundle.BUNDLE_FLOOD.launches == launches
+        truncated = tflood.flood_bundle(a.cpu(), b.cpu())  # the CPU's plain flood takes the switch
+    finally:
+        tflood.set_bitpack_fixed_only(previous)
+    whole = tflood.flood_bundle(a, b)
+    assert any(not torch.equal(x.cpu(), y) for x, y in zip(whole, truncated))
+
+
+def test_measure_convergence_kernel_word_equals_the_counted_fixpoint(cuda_device, capsys):
+    from gymgo_tpu_torch.scripts import measure_convergence
+
+    rc = measure_convergence.main(["--board", "19", "--batch", "512", "--warmup-steps", "200",
+                                   "--measure-steps", "8"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert rec["kernel_checked_steps"] == 8 and rec["kernel_mismatch_steps"] == 0
+    assert rec["step_launches"] == 8 + 1  # one a step, one seeding
+    assert rec["per_env"]["max"] < rec["maxk"] - 2

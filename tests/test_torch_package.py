@@ -53,7 +53,8 @@ def test_every_module_is_found():
                  "scripts.net2net", "scripts.value_probe", "demo", "benchmarks.efficiency",
                  "benchmarks.native_batch", "parallel", "parallel.mesh", "parallel.sharded_env",
                  "scripts.multiproc_worker", "scripts.multihost_bench", "scripts.scaling_proxy",
-                 "scripts.fuzz_parity"):
+                 "scripts.fuzz_parity", "scripts.measure_convergence", "scripts.search_cost_ablation",
+                 "scripts.walk_depth_study"):
         assert f"gymgo_tpu_torch.{name}" in names
 
 
