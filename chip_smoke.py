@@ -134,9 +134,11 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      same seed (final states, actions, rewards, dones), the bundle kernel
      launched exactly k x (64 + 1) times: once per shard per step, and once
      per shard for the seeding of the carried atari/ko planes each call
-     makes; then, for the unsharded rollout and each k, 3 timed windows of
-     64 steps from the same boards, and for k = 4 a device profile of 16
-     steps (24a profiles the unsharded step); (b)
+     makes (its first call, run eagerly before the capture: ``ShardedGoEnv``
+     replays a CUDA graph after); then, for the unsharded compiled rollout
+     (``BatchGoEnv``) and each k, 3 timed windows of 64 steps from the same
+     boards, and for k = 4 a device profile of a replayed 64-step window
+     (25 profiles the unsharded one); (b)
      ``scripts.multiproc_worker`` as 2 ranks of 2 logical shards on the one
      card (gloo) at 19x19, B = 4096, 64 steps: both ranks' checksums equal a
      one-process rollout's; then 2 segments with rank 1 killed after segment
@@ -176,14 +178,32 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      word equal to the counted fixpoint on every env of every step) and its
      ``--warm-study`` (fixpoint equality every step), ``walk_depth_study``
      at 13x13 and at 19x19 128x6 (B = 64 and 512) side by side, then
-     ``search_cost_ablation`` at its 8x1 net and at 128x6.
+     ``search_cost_ablation`` at its 8x1 net and at 128x6;
+ 25. the compiled forms (CUDA graphs, ``utils.graphs``), from phase 4's
+     boards: (a) ``BatchGoEnv.rollout``'s compiled 64-step window against the
+     eager ``rollout`` from the same seed, bit for bit (actions, rewards,
+     dones, invalid, final states, the generator's state) over the first call
+     and two replays, 65 bundle launches a window by the counter; (b) no host
+     sync inside a replayed window (sync debug mode); (c) a replayed and an
+     eager window under the profiler: 65 bundle kernels each by its count and
+     the counter's (the profiler may lose the seeding's record), kernels a
+     step, the device's busy share; (d) 5 timed
+     windows of each in turns, the graph's node count and capture seconds;
+     (e) a 768-step window (phase 4's warmup) as one graph from fresh boards:
+     its capture's nodes and seconds, a replay equal to the eager rollout bit
+     for bit, the peak memory; (f) ``make_jitted_train_step`` at 1024 rows
+     with the committed 128x6 net in bfloat16 against ``train_step`` on a copy
+     whose AdamW is capturable too (cuDNN deterministic), bit for bit over 3
+     steps, ms of each; (g) a 19x19 ``GoEnv`` game on the card through the
+     compiled ``gogame`` step and again through the eager one: equal at every
+     step, ms of each.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
 20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
-measurement layer; the launch counts are set to 0 before the search, each
+measurement layer, 25 the compiled forms; the launch counts are set to 0 before the search, each
 match, the training run, the ``gogame`` game, the ``GoEnv`` games, phase 20,
-each sharded rollout of 22a, each ablation's windows and each layout's
-search, and read after.  After phase
+each sharded rollout of 22a, each ablation's windows, each layout's
+search and phase 25's compiled windows, and read after.  After phase
 15, a replay of the recipe's size takes one add of more rows than its
 capacity (81,920 into 65,536): every slot must hold one whole row, the last
 65,536 in order.
@@ -1293,7 +1313,7 @@ def sharding_path(dev, states, bundle_lib, minmax_lib, workdir):
     from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
     from gymgo_tpu_torch.convert import load_aznet_npz
     from gymgo_tpu_torch.core.state import batch_init_state
-    from gymgo_tpu_torch.env.batch_env import rollout
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
     from gymgo_tpu_torch.models.az_net import AZNet
     from gymgo_tpu_torch.parallel import ShardedGoEnv, make_mesh
     from gymgo_tpu_torch.rl.learner import make_train_state, train_step
@@ -1302,15 +1322,19 @@ def sharding_path(dev, states, bundle_lib, minmax_lib, workdir):
 
     # (a) k logical shards of the card against the unsharded rollout
     t_phase = time.perf_counter()
-    B, STEPS, WINDOWS, PROF_STEPS = 12288, 64, 3, 16
+    B, STEPS, WINDOWS = 12288, 64, 3
     cfg = EnvConfig(board_size=19, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
     plain = rollout(torch.Generator(device=dev).manual_seed(SEED + 22), states, STEPS, cfg)
     launches, rates = {}, {}
-    # the unsharded rollout timed the same way, in this phase, for the rates of each k (phase 24a
-    # profiles it on the same boards)
-    rates[0], _, _ = timed_windows(rollout, torch.Generator(device=dev).manual_seed(SEED + 23), plain.final_states,
+    # the unsharded compiled rollout (BatchGoEnv) timed the same way, in this phase, for the rates of
+    # each k; its first call, which captures, untimed (phase 25 profiles it on the same boards)
+    unsharded = BatchGoEnv(cfg, device=dev)
+    unsharded.rollout(torch.Generator(device=dev).manual_seed(SEED + 23), plain.final_states, STEPS)
+    rates[0], _, _ = timed_windows(lambda g, s, w, c: unsharded.rollout(g, s, w),
+                                   torch.Generator(device=dev).manual_seed(SEED + 23), plain.final_states,
                                    cfg, STEPS, WINDOWS)
-    print(f"[22a logical shards] 19x19 B={B}, unsharded: {WINDOWS} windows: {rates_text(rates[0])}", flush=True)
+    print(f"[22a logical shards] 19x19 B={B}, unsharded (BatchGoEnv, compiled): {WINDOWS} windows: "
+          f"{rates_text(rates[0])}", flush=True)
     for k in (1, 2, 4):
         env = ShardedGoEnv(cfg, make_mesh(devices=[dev] * k))
         torch.cuda.synchronize()
@@ -1327,14 +1351,14 @@ def sharding_path(dev, states, bundle_lib, minmax_lib, workdir):
         rates[k], _, _ = timed_windows(lambda g, s, w, c: env.rollout(g, s, w), torch.Generator(device=dev)
                                        .manual_seed(SEED + 23), plain.final_states, cfg, STEPS, WINDOWS)
         profiled = ""
-        if k == 4:
+        if k == 4:  # a replayed window
             wall_us, rows = device_profile(lambda: env.rollout(torch.Generator(device=dev).manual_seed(SEED),
-                                                               states, PROF_STEPS))
+                                                               states, STEPS))
             busy_us = sum(row[0] for row in rows)
-            profiled = (f"; profiled {PROF_STEPS} steps: wall {wall_us / PROF_STEPS:.1f} us/step, device busy "
-                        f"{busy_us / PROF_STEPS:.1f} us/step ({100 * busy_us / wall_us:.1f}%), "
-                        f"{sum(row[1] for row in rows) / PROF_STEPS:.1f} kernel launches/step")
-        print(f"[22a logical shards] 19x19 B={B}, k={k} shards of one card, {STEPS} steps from phase 4's "
+            profiled = (f"; profiled {STEPS} steps: wall {wall_us / STEPS:.1f} us/step, device busy "
+                        f"{busy_us / STEPS:.1f} us/step ({100 * busy_us / wall_us:.1f}%), "
+                        f"{sum(row[1] for row in rows) / STEPS:.1f} kernel launches/step")
+        print(f"[22a logical shards] 19x19 B={B}, k={k} shards of one card (compiled), {STEPS} steps from phase 4's "
               f"boards: final states, actions, rewards, dones == unsharded bit for bit; bundle launches "
               f"{launches[k]} = {k} x ({STEPS} + 1); {WINDOWS} windows from the unsharded windows' start: "
               f"{rates_text(rates[k])} ({statistics.median(rates[k]) / statistics.median(rates[0]):.3f} of "
@@ -1727,6 +1751,196 @@ def studies():
     return {"measure_convergence": conv["step_launches"]}
 
 
+def compiled_path(dev, states, bundle_lib, minmax_lib):
+    """Phase 25: the compiled forms (``utils.graphs``, CUDA graphs) on the
+    card, from phase 4's steady-state 19x19 B = 12288 ``states``.  Returns the
+    bundle kernel's launches in (a)'s three compiled windows."""
+    from gymgo_tpu_torch import gogame
+    from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core.state import batch_init_state
+    from gymgo_tpu_torch.env import GoEnv
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
+    from gymgo_tpu_torch.models.az_net import AZNet
+    from gymgo_tpu_torch.rl.learner import make_jitted_train_step, make_train_state, train_step
+
+    t_phase = time.perf_counter()
+    B, N, WINDOW, REPEATS = states.shape[0], states.shape[-1], 64, 5
+    fields = ("actions", "rewards", "dones", "invalid", "final_states")
+    cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+    env = BatchGoEnv(cfg, device=dev)
+    if not env.compiled:
+        fail("BatchGoEnv is not compiled on the bundle route on the card")
+
+    # (a) the compiled rollout against the eager one from the same seed, bit for bit: the first call (run
+    # eagerly, then captured) and two replays, each window from the last one's boards
+    gc, ge = (torch.Generator(device=dev).manual_seed(SEED + 25) for _ in range(2))
+    s = states
+    bundle_lib.launches = minmax_lib.launches = 0
+    per_call = []
+    for i in range(3):
+        before = bundle_lib.launches
+        got = env.rollout(gc, s, WINDOW)
+        per_call.append(bundle_lib.launches - before)
+        want = rollout(ge, s, WINDOW, cfg)
+        for field in fields:
+            if not torch.equal(getattr(got, field), getattr(want, field)):
+                fail(f"25a: the compiled rollout differs from the eager one on {field} at call {i}")
+        s = got.final_states
+    if per_call != [WINDOW + 1] * 3 or minmax_lib.launches != 0:
+        fail(f"25a: bundle launches {per_call} per compiled window (expected {WINDOW + 1}), "
+             f"min/max {minmax_lib.launches}")
+    if not torch.equal(gc.get_state(), ge.get_state()):
+        fail("25a: the compiled rollout left its generator elsewhere than the eager one")
+    (graph,) = env._rollout.graphs.values()
+
+    # (b) no host sync inside a replayed window
+    with host_syncs() as caught:
+        env.rollout(gc, s, WINDOW)
+    syncs = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    if syncs:
+        fail(f"25b: a replayed window made {len(syncs)} host syncs: {syncs[0].message}")
+
+    # (c) a replayed window and an eager one under the profiler: the bundle kernel's launches by the
+    # profiler's count and by the counter, kernels a step, the device's busy share.  The profiler has
+    # lost one kernel record of a window, replayed or eager, in some runs (64 of 65, where the counter and
+    # the bit-exact result say all 65 ran), so it is held to one a step, the seeding's record allowed lost.
+    profiles, seen = {}, {}
+    for form, fn in (("compiled", lambda: env.rollout(gc, s, WINDOW)), ("eager", lambda: rollout(gc, s, WINDOW, cfg))):
+        before = bundle_lib.launches
+        wall_us, rows = device_profile(fn)
+        counted = bundle_lib.launches - before
+        seen[form] = sum(c for _, c, k in rows if "BundleOp" in k)
+        busy_us = sum(r[0] for r in rows)
+        if not WINDOW <= seen[form] <= WINDOW + 1 or counted != WINDOW + 1 or busy_us <= 0:
+            fail(f"25c {form}: the profiler saw {seen[form]} bundle kernels and {busy_us} us of device time, the "
+                 f"counter {counted}; expected {WINDOW + 1}")
+        profiles[form] = (wall_us / WINDOW, busy_us / WINDOW, 100 * busy_us / wall_us,
+                          sum(r[1] for r in rows) / WINDOW)
+
+    # (d) timed windows in turns, each from the same boards and ending on a scalar checksum fetch
+    rates = {"compiled": [], "eager": []}
+    for _ in range(REPEATS):
+        for form, fn in (("compiled", lambda: env.rollout(gc, s, WINDOW)),
+                         ("eager", lambda: rollout(gc, s, WINDOW, cfg))):
+            t0 = time.perf_counter()
+            r = fn()
+            checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
+            rates[form].append(B * WINDOW / (time.perf_counter() - t0))
+            if not math.isfinite(checksum):
+                fail(f"25d: checksum not finite: {checksum}")
+    for form in ("compiled", "eager"):
+        wall, busy, share, kernels = profiles[form]
+        print(f"[25 compiled rollout] 19x19 B={B}, {WINDOW}-step windows, {form}: {rates_text(rates[form])}; "
+              f"profiled {wall:.1f} us/step wall, device busy {busy:.1f} us/step ({share:.1f}% busy), "
+              f"{kernels:.1f} kernels/step", flush=True)
+    print(f"[25 compiled rollout] == eager bit for bit over a first call and 2 replays (actions, rewards, dones, "
+          f"invalid, final states, the generator); bundle launches {per_call} by the counter, "
+          f"{seen['compiled']} in a replayed window by the profiler ({seen['eager']} in an eager one); "
+          f"0 host syncs in a replay; graph {graph.nodes} nodes "
+          f"({graph.nodes / WINDOW:.1f} a step), captured in {graph.capture_seconds:.3f} s", flush=True)
+
+    # (e) a whole 768-step window (phase 4's warmup) as one graph, from fresh boards: the first call (eager,
+    # then the capture), then a replay from fresh boards against the eager rollout, bit for bit
+    LONG = 768
+    fresh = batch_init_state(B, N, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    env.rollout(torch.Generator(device=dev).manual_seed(SEED + 27), fresh, LONG)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    long_graph = next(g for g in env._rollout.graphs.values() if g.static_out.actions.shape[0] == LONG)
+    t0 = time.perf_counter()
+    got = env.rollout(torch.Generator(device=dev).manual_seed(SEED + 28), fresh, LONG)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    want = rollout(torch.Generator(device=dev).manual_seed(SEED + 28), fresh, LONG, cfg)
+    for field in fields:
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            fail(f"25e: the compiled {LONG}-step rollout differs from the eager one on {field}")
+    print(f"[25 compiled rollout] a {LONG}-step window from fresh boards: first call (eager, then the capture) "
+          f"{first_s:.2f} s, graph {long_graph.nodes} nodes captured in {long_graph.capture_seconds:.2f} s, "
+          f"a replay {replay_s:.3f} s == eager bit for bit; peak memory {peak_gb:.2f} GiB", flush=True)
+
+    # (f) the learner step (cell 5's 1024 rows, the committed 128x6 net computing in bfloat16 as the trainer
+    # does): compiled against train_step on a copy whose AdamW is capturable too, cuDNN deterministic, bit for
+    # bit over 3 steps; then ms of each, by CUDA events
+    ROWS = 1024
+    src = load_aznet_npz(NET_19, device=dev)
+    sd = {k: v.float() for k, v in src.state_dict().items()}
+    nets = []
+    for _ in range(2):
+        net = AZNet(src.config, torch.float32)
+        net.load_state_dict(sd)
+        nets.append(net.to(dev))
+    eager_ts, jit_ts = make_train_state(nets[0], 2e-4), make_train_state(nets[1], 2e-4)
+    for group in eager_ts.optimizer.param_groups:
+        group["capturable"] = True
+    jit_step = make_jitted_train_step(jit_ts)
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    pi = torch.softmax(torch.randn((ROWS, N * N + 1), device=dev, generator=g), 1)
+    v = torch.randint(0, 2, (ROWS,), device=dev, generator=g).float() * 2 - 1
+    mask = torch.rand(ROWS, device=dev, generator=g) < 0.9
+    batch = (states[:ROWS], pi, v, mask, mask & (torch.rand(ROWS, device=dev, generator=g) < 0.5))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i in range(3):
+            eager_ts, want = train_step(eager_ts, batch)
+            jit_ts, got = jit_step(jit_ts, batch)
+            if not all(torch.equal(got[k], want[k]) for k in want):
+                fail(f"25f: learner step {i}: compiled loss {float(got['loss'])} != eager {float(want['loss'])}")
+            if not all(torch.equal(p, q) for p, q in zip(nets[0].parameters(), nets[1].parameters())):
+                worst = max(float((p - q).abs().max()) for p, q in zip(nets[0].parameters(), nets[1].parameters()))
+                fail(f"25f: learner step {i}: the parameters differ by {worst:.3g}")
+        eager_ms = time_ms(lambda: train_step(eager_ts, batch), 8)
+        jit_ms = time_ms(lambda: jit_step(jit_ts, batch), 8)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (learner_graph,) = jit_step.update.graphs.values()
+    print(f"[25 compiled learner] 19x19 128x6 bfloat16, {ROWS} rows, AdamW lr 2e-4: compiled == eager "
+          f"(capturable AdamW, cuDNN deterministic) bit for bit over 3 steps (loss {float(got['loss']):.6f}); "
+          f"ms a step: compiled {jit_ms:.3f}, eager {eager_ms:.3f}; graph {learner_graph.nodes} nodes, captured "
+          f"in {learner_graph.capture_seconds:.3f} s", flush=True)
+
+    # (g) a GoEnv game (cell 6) through the compiled gogame step, then the same actions through the eager one
+    def game(moves):
+        np.random.seed(SEED + 25)
+        e = GoEnv(N, reward_method="heuristic", backend="torch", device=dev)
+        e.reset()
+        out, ms = [], []
+        for _ in range(moves):
+            a = e.uniform_random_action()
+            t0 = time.perf_counter()
+            obs, reward, done, _ = e.step(a)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out.append((obs, reward, done))
+            if done:
+                break
+        return out, ms
+
+    compiled_step = gogame._step_states
+    before = bundle_lib.launches
+    game_c, ms_c = game(200)
+    game_launches = bundle_lib.launches - before
+    gogame._step_states = compiled_step.fn
+    try:
+        game_e, ms_e = game(200)
+    finally:
+        gogame._step_states = compiled_step
+    if len(game_c) != len(game_e) or any(not (np.array_equal(a[0], b[0]) and a[1:] == b[1:])
+                                         for a, b in zip(game_c, game_e)):
+        fail("25g: the GoEnv game through the compiled step differs from the eager one")
+    if game_launches != 2 * len(game_c):
+        fail(f"25g: {game_launches} bundle launches in {len(game_c)} compiled GoEnv steps (2 a step)")
+    print(f"[25 compiled GoEnv] 19x19 heuristic, {len(game_c)} moves, compiled == eager at every step; ms per "
+          f"step: compiled {spread(ms_c[1:])} (first, with the capture, {ms_c[0]:.3f}), eager {spread(ms_e)}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sum(per_call)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -1942,6 +2156,7 @@ def main() -> int:
     ablation_launches = ablation_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
     layout_launches = layouts_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
     study_launches = studies()
+    compiled_launches = compiled_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
 
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
@@ -1960,6 +2175,7 @@ def main() -> int:
         "launches_ablations": ablation_launches,
         "launches_layouts": layout_launches,
         "launches_studies": study_launches,
+        "launches_compiled": compiled_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,

@@ -4,7 +4,9 @@
 The rollout is an eager Python loop over steps.  On the default path (uniform
 sampler, carried atari/ko planes) a step makes no host sync: the sampler draws
 on the device from a ``torch.Generator``, and the bundle flood's fixpoint loop
-runs inside its CUDA kernel.  On a mesh (``gymgo_tpu_torch.parallel``) the
+runs inside its CUDA kernel.  So ``BatchGoEnv`` captures a whole window into
+one CUDA graph on the card (``utils.graphs``); ``batch_step`` and ``rollout``
+themselves stay eager, as JAX's do (its wrapper jits them).  On a mesh (``gymgo_tpu_torch.parallel``) the
 per-env work runs once per env shard (``shard_over_envs``) and the random
 words are drawn for the whole batch, so a sharded rollout equals the
 unsharded one from the same generator.
@@ -12,6 +14,7 @@ unsharded one from the same generator.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -22,6 +25,7 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
 __all__ = ["StepResult", "Rollout", "reward_from_areas", "batch_step", "shard_over_envs", "rollout",
            "BatchGoEnv"]
@@ -253,13 +257,40 @@ def rollout(
 
 
 class BatchGoEnv:
-    """Stateful convenience wrapper around ``batch_step`` and ``rollout``.
+    """Stateful convenience wrapper around ``batch_step`` and ``rollout``,
+    with their compiled forms (as the JAX package's ``BatchGoEnv`` jits them).
 
-    Runs on ``device`` (default ``cuda``; raises when there is no card)."""
+    Runs on ``device`` (default ``cuda``; raises when there is no card).  On
+    the card ``step``, ``rollout`` and ``uniform_random_actions`` replay CUDA
+    graphs (``utils.graphs.compiled``): the first call of each key runs
+    eagerly and captures, later ones replay.  ``rollout`` is keyed on
+    ``num_steps``, ``policy_fn`` and ``collect_obs``, as JAX's
+    ``static_argnames`` are, and a whole window of ``num_steps`` steps is one
+    graph, as it is one ``lax.scan`` there.  A ``policy_fn`` must be a
+    function of its ``(generator, states)`` on the card with no host sync (a
+    sync makes the capture raise; host state read inside it would be baked
+    into the graph: hand such a policy to the plain ``rollout``).
+
+    ``compiled`` says whether the graphs are used: it is false on the CPU and
+    on the minmax route (``GYMGO_FLOOD=unrolled`` and every non-bundle value),
+    whose claim flood checks its convergence on the host, so there the
+    methods run the eager functions.  The JAX package compiles that route
+    too; the port cannot until the claim flood makes no host sync.
+    """
 
     def __init__(self, config: EnvConfig, device=None):
         self.config = config
         self.device = _state.resolve_device(device)
+        self._step = compiled(functools.partial(batch_step, config=config))
+        self._rollout = compiled(functools.partial(rollout, config=config),
+                                 static_argnames=("num_steps", "policy_fn", "collect_obs"))
+        self._random_actions = compiled(_actions.uniform_random_actions)
+
+    @property
+    def compiled(self) -> bool:
+        """True when ``step``, ``rollout`` and ``uniform_random_actions``
+        replay CUDA graphs: on the card, on the bundle route."""
+        return self.device.type == "cuda" and capturable(self.config.board_size)
 
     def reset(self) -> torch.Tensor:
         return _state.batch_init_state(
@@ -271,12 +302,19 @@ class BatchGoEnv:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def step(self, states: torch.Tensor, actions):
-        return batch_step(states, torch.as_tensor(actions, device=self.device), self.config)
+        actions = torch.as_tensor(actions, device=self.device)
+        if self.compiled:
+            return self._step(states, actions)
+        return batch_step(states, actions, self.config)
 
     def uniform_random_actions(self, generator, states):
+        if self.compiled:
+            return self._random_actions(generator, states)
         return _actions.uniform_random_actions(generator, states)
 
     def rollout(self, generator, states, num_steps: int, **kw) -> Rollout:
+        if self.compiled:
+            return self._rollout(generator, states, num_steps, **kw)
         return rollout(generator, states, num_steps, self.config, **kw)
 
     def valid_moves(self, states):

@@ -7,8 +7,14 @@ are stepped as int8 tensors.  Every function that computes takes a
 keyword-only ``device``: ``cuda`` unless the caller names another, raising
 when there is no card (``core.state.resolve_device``).  On the card every
 transition, ``children`` and ``areas`` launch the bundle flood kernel through
-``core.step.step_states`` and ``core.score``.  Importing this module touches
-no device.
+``core.step.step_states`` and ``core.score``.  The six device functions are
+compiled once at import, as the JAX package jits them (``_step_states``,
+``_batch_canonical``, ``_children_jit``, ``_areas_jit``,
+``_num_liberties_jit``, ``_liberties_jit``): on the card each replays a CUDA
+graph per input shape, but the step, ``children`` and the score run their
+eager functions where they sync with the host (the minmax route; boards
+over 22x22).
+Importing this module touches no device.
 
 The contract is the JAX package's:
   * ``batch_next_states`` applies per-env single-state semantics; the
@@ -32,8 +38,24 @@ from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.core.state import resolve_device
 from gymgo_tpu_torch.utils import render as _render
+from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
 _OUT_DTYPE = np.float64
+
+# the compiled device functions (cached per input shape)
+_step_states = compiled(_step.step_states)
+_batch_canonical = compiled(_transform.batch_canonical_form)
+_children_jit = compiled(_actions.children, static_argnames=("canonical",))
+_areas_jit = compiled(_score.areas)
+_num_liberties_jit = compiled(_score.num_liberties)
+_liberties_jit = compiled(_score.liberties)
+
+
+def _run(fn, states, *args, **kw):
+    """The compiled ``fn`` (a step or a score) on ``states``, or its eager
+    function where that work syncs with the host
+    (``utils.graphs.capturable``)."""
+    return (fn if capturable(states.shape[-1]) else fn.fn)(states, *args, **kw)
 
 
 def _to_device(state, device) -> torch.Tensor:
@@ -47,7 +69,7 @@ def _to_host(state: torch.Tensor) -> np.ndarray:
 def _step_checked(batch_states, batch_action1d, device):
     dev = _to_device(batch_states, device)
     acts = torch.from_numpy(np.asarray(batch_action1d).astype(np.int32)).to(dev.device)
-    new_states, info = _step.step_states(dev, acts)
+    new_states, info = _run(_step_states, dev, acts)
     bad = info.invalid_action.cpu().numpy()
     assert not bad.any(), ("Invalid move", np.nonzero(bad)[0].tolist())
     return new_states, info
@@ -85,7 +107,7 @@ def _next_state_with_areas(state, action1d, *, device=None):
 def batch_next_states(batch_states, batch_action1d, canonical=False, *, device=None):
     new_states, _ = _step_checked(batch_states, batch_action1d, device)
     if canonical:
-        new_states = _transform.batch_canonical_form(new_states)
+        new_states = _batch_canonical(new_states)
     return _to_host(new_states)
 
 
@@ -121,7 +143,7 @@ def batch_valid_moves(batch_state):
 # --------------------------------------------------------------------------
 
 def children(state, canonical=False, padded=True, *, device=None):
-    out = _to_host(_actions.children(_to_device(state, device), canonical=bool(canonical)))
+    out = _to_host(_run(_children_jit, _to_device(state, device), canonical=bool(canonical)))
     if not padded:
         out = out[np.nonzero(valid_moves(state))]
     return out
@@ -181,22 +203,22 @@ def batch_winning(state, komi=0, *, device=None):
 
 
 def areas(state, *, device=None):
-    ba, wa = _score.areas(_to_device(state, device)[None])
+    ba, wa = _run(_areas_jit, _to_device(state, device)[None])
     return float(ba[0]), float(wa[0])
 
 
 def batch_areas(batch_state, *, device=None):
-    ba, wa = _score.areas(_to_device(batch_state, device))
+    ba, wa = _run(_areas_jit, _to_device(batch_state, device))
     return ba.cpu().numpy().astype(_OUT_DTYPE), wa.cpu().numpy().astype(_OUT_DTYPE)
 
 
 def liberties(state, *, device=None):
-    bl, wl = _score.liberties(_to_device(state, device)[None])
+    bl, wl = _liberties_jit(_to_device(state, device)[None])
     return bl[0].cpu().numpy(), wl[0].cpu().numpy()
 
 
 def num_liberties(state, *, device=None):
-    bl, wl = _score.num_liberties(_to_device(state, device)[None])
+    bl, wl = _num_liberties_jit(_to_device(state, device)[None])
     return int(bl[0]), int(wl[0])
 
 
@@ -209,7 +231,7 @@ def canonical_form(state, *, device=None):
 
 
 def batch_canonical_form(batch_state, *, device=None):
-    return _to_host(_transform.batch_canonical_form(_to_device(batch_state, device)))
+    return _to_host(_batch_canonical(_to_device(batch_state, device)))
 
 
 def _orient(image, orientation):

@@ -6,7 +6,9 @@ by ``nvcc`` for ``sm_90a`` into a shared library at first use, into
 it includes with quotes, so an edited source or header builds anew), and
 loaded with ``ctypes``.  Nothing is compiled or loaded when this module is
 imported.  Every wrapper of a kernel keeps its own
-``CudaKernelLib``, and so its own launch count.
+``CudaKernelLib``, and so its own launch count.  ``LIBRARIES`` lists them all,
+so that a CUDA graph (``utils.graphs``) can add the launches it captured to
+their counts each time it replays.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernelLib", "check_planes", "source_files"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "CudaKernelLib", "check_planes", "source_files"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -33,6 +35,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+
+# every CudaKernelLib made, in order
+LIBRARIES: list["CudaKernelLib"] = []
 
 _QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
@@ -63,7 +68,8 @@ class CudaKernelLib:
 
     ``argtypes`` are the C launcher's argument types: ``ctypes.c_void_p`` for
     each pointer and the stream, ``ctypes.c_int`` for each int.  The launcher
-    returns a ``cudaError_t`` as an int.
+    returns a ``cudaError_t`` as an int.  ``launches`` counts the kernels run
+    through ``launch``, and those a CUDA graph replays (``utils.graphs``).
     """
 
     def __init__(self, source: Path, symbol: str, argtypes):
@@ -75,6 +81,7 @@ class CudaKernelLib:
         self.build_log = ""  # nvcc's output: registers, shared memory, spills
         self._fn = None
         self._lock = threading.Lock()
+        LIBRARIES.append(self)
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(repr(NVCC_FLAGS).encode())

@@ -3,7 +3,9 @@ mesh (counterpart of ``gymgo_tpu.parallel.sharded_env``).
 
 The step and the rollout run one call per env shard (``shard_over_envs``) and
 make no collective; only the user-level reductions of ``checksums`` and
-``gather_states`` cross processes.
+``gather_states`` cross processes.  On the card each process captures its own
+shards' step and rollout into one CUDA graph (``utils.graphs``), as the JAX
+package jits them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.env import batch_env as _batch_env
 from gymgo_tpu_torch.parallel import mesh as _mesh
+from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
 __all__ = ["ShardedGoEnv"]
 
@@ -40,6 +43,14 @@ class ShardedGoEnv:
     on a local mesh and this process's shards when the mesh spans processes
     (``step`` then returns the list of states and the list of
     ``StepResult``\\ s).
+
+    On the card ``step`` and ``rollout`` replay CUDA graphs, one per process
+    over all of its shards (``rollout`` keyed as ``BatchGoEnv.rollout`` is):
+    the per-shard work makes no collective, and the sampler's words are still
+    drawn once for the whole batch inside the graph.  ``compiled`` is false,
+    and the eager functions run, on the CPU, on the minmax route (its claim
+    flood syncs with the host), and where this process's shards lie on more
+    than one card (a graph runs on one).
     """
 
     def __init__(self, config: EnvConfig, mesh: _mesh.Mesh | None = None):
@@ -48,9 +59,21 @@ class ShardedGoEnv:
         env_axis = self.mesh.shape[_mesh.ENV_AXIS]
         if config.batch_size % env_axis != 0:
             raise ValueError(f"batch_size {config.batch_size} not divisible by env axis {env_axis}")
-        self._step = _batch_env.shard_over_envs(functools.partial(_batch_env.batch_step, config=config),
-                                                self.mesh)
+        self._eager_step = _batch_env.shard_over_envs(functools.partial(_batch_env.batch_step, config=config),
+                                                      self.mesh)
+        self._eager_rollout = functools.partial(_batch_env.rollout, config=config, mesh=self.mesh)
+        self._step = compiled(self._eager_step)
+        self._rollout = compiled(self._eager_rollout, static_argnames=("num_steps", "policy_fn", "collect_obs"))
         self._actions = _batch_env.shard_over_envs(_uniform_actions, self.mesh)
+        devices = {dev for _, dev in self.mesh.local_shards()}
+        self._device = devices.pop() if len(devices) == 1 else None
+
+    @property
+    def compiled(self) -> bool:
+        """True when ``step`` and ``rollout`` replay CUDA graphs: this
+        process's shards on one card, on the bundle route."""
+        return (self._device is not None and self._device.type == "cuda"
+                and capturable(self.config.board_size))
 
     def reset(self) -> list:
         """Fresh boards: this process's shards, each made on its device."""
@@ -60,13 +83,17 @@ class ShardedGoEnv:
 
     def step(self, states, actions):
         """One ``batch_step`` per shard; ``actions`` is the global (B,) batch."""
-        out = self._step(states, torch.as_tensor(actions, dtype=torch.int32))
+        if self.compiled:
+            out = self._step(states, torch.as_tensor(actions, dtype=torch.int32, device=self._device))
+        else:
+            out = self._eager_step(states, torch.as_tensor(actions, dtype=torch.int32))
         if isinstance(out, list):
             return [o[0] for o in out], [o[1] for o in out]
         return out
 
     def rollout(self, generator: torch.Generator, states, num_steps: int, **kw) -> _batch_env.Rollout:
-        return _batch_env.rollout(generator, states, num_steps, self.config, mesh=self.mesh, **kw)
+        run = self._rollout if self.compiled else self._eager_rollout
+        return run(generator, states, num_steps, **kw)
 
     def uniform_random_actions(self, generator: torch.Generator, states):
         """The uniform sampler on the sharded batch: one word per env drawn for

@@ -8,6 +8,12 @@ p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), with p before the update.
 The module holds float32 master parameters and computes in its config's dtype,
 as flax does.  The backward pass is PyTorch's autograd through its convolutions
 and dense layers; the JAX package has no kernel of its own there either.
+
+``make_jitted_train_step`` is the compiled form: on the card the forward, the
+backward and the AdamW update are one CUDA graph (``utils.graphs``), with
+``AdamW(capturable=True)``, whose bias corrections are computed on the card in
+float32 where the eager step computes them on the host in float64 (the
+parameters agree within rounding, not bit for bit).
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from gymgo_tpu_torch.parallel.mesh import all_reduce_sum
+from gymgo_tpu_torch.utils.graphs import compiled
 
-__all__ = ["TrainState", "make_train_state", "az_loss", "train_step"]
+__all__ = ["TrainState", "make_train_state", "az_loss", "train_step", "make_jitted_train_step"]
 
 
 class TrainState(NamedTuple):
@@ -111,3 +118,69 @@ def train_step(state: TrainState, batch, group=None):
     state.optimizer.step()
     metrics = {"loss": loss.detach(), "policy_loss": pi_loss.detach(), "value_loss": v_loss.detach()}
     return state._replace(step=state.step + 1), metrics
+
+
+def _held_tensors(state: TrainState) -> list:
+    """The tensors a captured step reads and updates in place: the
+    parameters, their gradients and the optimizer's state."""
+    held = []
+    for p in state.net.parameters():
+        held += [p, p.grad] + [v for v in state.optimizer.state.get(p, {}).values() if isinstance(v, torch.Tensor)]
+    return held
+
+
+def make_jitted_train_step(state: TrainState, sample=None):
+    """The compiled ``train_step`` for ``group=None`` (the counterpart of the
+    JAX package's ``make_jitted_train_step``): ``step(state, batch) ->
+    (state, metrics)`` as ``train_step`` returns them, for ``state``'s net
+    and optimizer.
+
+    With ``sample``, ``step(state, *args)`` computes its batch as
+    ``sample(*args)`` inside the same program, as JAX's trainer jits the
+    replay's sample with the step (the trainer passes the replay's ``filled``
+    count and the generator; the rows are read where they lie).
+
+    On the card the forward, the backward and the AdamW update are one CUDA
+    graph per batch shape: the optimizer is switched to ``capturable=True``
+    (its step counts moved to the card) and the gradients are zeroed in place,
+    never freed, so the graph's tensors stay those of ``state``.  A step whose
+    parameters, gradients or optimizer state were replaced since its capture
+    (a ``load_state_dict`` of the optimizer, a ``zero_grad`` that frees)
+    raises.  On the CPU it is ``train_step``.  The data-parallel step
+    (``group=``) has no compiled form: its all-reduce goes through the host
+    under gloo."""
+    net, opt = state.net, state.optimizer
+    device = next(net.parameters()).device
+    if device.type == "cuda":
+        for group in opt.param_groups:
+            group["capturable"] = True
+        for st in opt.state.values():
+            if isinstance(st.get("step"), torch.Tensor) and not st["step"].is_cuda:
+                st["step"] = st["step"].to(device=device, dtype=torch.float32)
+
+    def update(*args):
+        obs, pi_t, v_t, mask, *rest = args if sample is None else sample(*args)
+        vmask = rest[0] if rest else None
+        opt.zero_grad(set_to_none=False)
+        loss, (pi_loss, v_loss) = az_loss(net, obs, pi_t, v_t, mask, vmask)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(), "policy_loss": pi_loss.detach(), "value_loss": v_loss.detach()}
+
+    update = compiled(update)
+    held = []
+
+    def step(st: TrainState, *args):
+        if st.net is not net or st.optimizer is not opt:
+            raise ValueError("this step was made for another TrainState's net and optimizer")
+        now = _held_tensors(st) if held else held
+        if len(now) != len(held) or any(a is not b for a, b in zip(held, now)):
+            raise RuntimeError("the parameters, gradients or optimizer state were replaced since the capture: "
+                               "make a new step")
+        metrics = update(*(args[0] if sample is None else args))
+        if device.type == "cuda":
+            held[:] = _held_tensors(st)
+        return st._replace(step=st.step + 1), metrics
+
+    step.update = update  # the compiled update, with its graphs
+    return step

@@ -35,7 +35,7 @@ from gymgo_tpu_torch.models.az_net import AZNetConfig, acting_copy, init_params,
 from gymgo_tpu_torch.models.surgery import reinit_value_head, zero_moments_for
 from gymgo_tpu_torch.rl.evaluate import play_match, with_pass_to_win
 from gymgo_tpu_torch.rl.gumbel_mcts import make_gumbel_mcts_policy
-from gymgo_tpu_torch.rl.learner import TrainState, make_train_state, train_step
+from gymgo_tpu_torch.rl.learner import TrainState, make_jitted_train_step, make_train_state
 from gymgo_tpu_torch.rl.replay import ReplayBuffer, ReplayState
 from gymgo_tpu_torch.rl.search import make_search_policy
 from gymgo_tpu_torch.rl.selfplay import (
@@ -198,6 +198,7 @@ class Trainer:
         self.acting = acting_copy(self.net)
         self.target = acting_copy(self.net)
         self.meter = Meter()
+        self._learn = None  # the compiled learner step (``learn``)
         if (a.checkpoint_every or a.snapshot_every) and not a.checkpoint:
             log("warning: --checkpoint-every/--snapshot-every have no effect without --checkpoint", flush=True)
         if a.resume:
@@ -303,10 +304,18 @@ class Trainer:
         self.buf_state = self.buf.add(self.buf_state, obs, pi, batch.value_target.flatten(), mask, vmask)
         return gfrac
 
+    def _sample(self, filled, generator):
+        """A uniform replay sample of ``--train-batch`` rows; the rows are
+        written in place by ``store``, only ``filled`` changes."""
+        return self.buf.sample(self.buf_state._replace(filled=filled), generator, self.args.train_batch)
+
     def learn(self) -> dict:
-        """One AdamW step on a uniform replay sample; refreshes the acting copy."""
-        batch = self.buf.sample(self.buf_state, self.generator, self.args.train_batch)
-        self.train_state, metrics = train_step(self.train_state, batch)
+        """One AdamW step on a uniform replay sample, the sample and the step
+        one compiled program on the card (JAX's ``learn_iter``; made at the
+        first call, after any restore); refreshes the acting copy."""
+        if self._learn is None:
+            self._learn = make_jitted_train_step(self.train_state, sample=self._sample)
+        self.train_state, metrics = self._learn(self.train_state, self.buf_state.filled, self.generator)
         refresh_(self.acting, self.net)
         return metrics
 

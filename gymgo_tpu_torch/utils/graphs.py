@@ -1,0 +1,264 @@
+"""Compiled forms: a function captured once into a CUDA graph and replayed
+(the port's counterpart of ``jax.jit``).
+
+``compiled(fn, static_argnames=...)`` returns a callable with ``fn``'s
+signature.  On CUDA tensors the first call with a given key runs ``fn``
+eagerly on a side stream (the warmup PyTorch's CUDA graph notes require: it
+also makes the lazy state, such as the kernels' device queries and the
+optimizer's moments) and returns that result; it then captures ``fn`` into a
+``torch.cuda.CUDAGraph``.  Every later call with the key copies its tensors
+into the graph's static inputs, replays the graph from one host call, and
+returns clones of the static outputs, so a caller keeps what it was given
+while the graph runs again.  On CPU tensors ``fn`` is called as it is, as the
+kernels' plain versions serve the CPU.
+
+The key holds the shapes, dtypes and devices of the tensor arguments, the
+values of the static arguments, the device of each ``torch.Generator``
+argument, the flood route (``core.flood.flood_route``), the ``GYMGO_ABLATE``
+tokens and the ``GYMGO_BITPACK_FIXED_ONLY`` prefix, so a switch never replays
+a graph captured under another setting.  Every other argument is a tree
+(tuples, named tuples, lists, dicts) of tensors, generators and ``None``.
+
+What a graph may hold:
+
+* No host sync: a sync inside the capture makes the capture fail, and a failed
+  capture raises; nothing falls back to eager running on the card.  The
+  minmax route's claim flood and the scoring of boards the bundle word cannot
+  hold (N*N > 511) sync, so their callers stay eager (``capturable``).
+* Draws from a ``torch.Generator`` argument: the graph draws from a
+  generator of its own, registered with it
+  (``CUDAGraph.register_generator_state``), which each replay sets to the
+  caller's generator's state and whose state after the replay the caller's
+  generator takes, so a replay draws what the eager call would and advances
+  the generator as that call would.  A CPU generator beside CUDA tensors
+  raises.
+* Host values are baked in at the capture: a ``policy_fn`` that reads
+  Python state (an iterator of recorded actions) replays the values it gave
+  the capture; pass such policies to the eager function.
+* Tensors that ``fn`` reads or updates in place other than its arguments (a
+  net's parameters, an optimizer's moments, a replay's rows) are read and
+  written where they lay at the capture: they must stay the same tensors.
+
+The hand kernels' launch counters (``ops.cuda_lib.CudaKernelLib.launches``)
+count what a replay runs: the launches recorded during the capture are added
+again on every replay.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import inspect
+import time
+from typing import Callable, NamedTuple
+
+import torch
+
+from gymgo_tpu_torch.core import flood as _flood
+from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.ops import cuda_lib
+
+__all__ = ["compiled", "Compiled", "CapturedGraph", "capturable"]
+
+
+def capturable(board_size: int) -> bool:
+    """True when the step, the rollout and the area score of ``board_size``
+    boards make no host sync on the card: the bundle route (the minmax
+    route's claim flood checks its convergence on the host) and boards whose
+    cell codes the bundle word holds."""
+    return _flood.flood_route in _flood.BUNDLE_ROUTES and board_size * board_size <= _flood.MAX_BUNDLE_CELLS
+
+
+def _map(fn, tree):
+    """``fn`` on every tensor and generator of ``tree``; containers rebuilt,
+    other leaves passed through."""
+    if isinstance(tree, (torch.Tensor, torch.Generator)):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = [_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, list):
+        return [_map(fn, x) for x in tree]
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _spec(tree, leaves: list):
+    """The hashable structure of an argument tree; its tensors and generators
+    are appended to ``leaves`` in the order ``_map`` visits them."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, torch.Generator):
+        leaves.append(tree)
+        return ("generator", tree.device)
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_spec(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _spec(v, leaves)) for k, v in tree.items()))
+    raise TypeError(f"a compiled function takes tensors, generators and trees of them; got {type(tree).__name__} "
+                    "(name the argument in static_argnames to key the graph on its value)")
+
+
+def _graph_device(leaves) -> torch.device | None:
+    """The one CUDA device of the tensor leaves, or None when none lies on a
+    card (the CPU path)."""
+    devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+    if not any(d.type == "cuda" for d in devices):
+        return None
+    if len(devices) > 1:
+        raise ValueError(f"a CUDA graph runs on one card; the tensors lie on {sorted(map(str, devices))}")
+    if any(isinstance(g, torch.Generator) and g.device.type != "cuda" for g in leaves):
+        raise ValueError("a CPU generator beside CUDA tensors: its draws would be baked into the graph")
+    return devices.pop()
+
+
+def _node_count(graph) -> int:
+    """The captured graph's node count, by libcuda's ``cuGraphGetNodes``
+    (the graph is kept after its capture for this: ``keep_graph``)."""
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                                      ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return count.value
+
+
+class CapturedGraph:
+    """One captured graph: a static input for each leaf of the arguments (a
+    tensor for a tensor, the graph's own registered generator for a
+    generator), the static outputs, the launches of each kernel library it
+    holds, its node count and capture seconds."""
+
+    def __init__(self, graph, static_in, static_out, launches, nodes, capture_seconds):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.launches = launches
+        self.nodes = nodes
+        self.capture_seconds = capture_seconds
+        self.replays = 0
+
+    def replay(self, leaves):
+        """Copy ``leaves`` in (a generator's state into the graph's own),
+        replay, hand each generator the state the replay left, and return
+        clones of the static outputs."""
+        pairs = list(zip(self.static_in, leaves))
+        for static, x in pairs:
+            if isinstance(x, torch.Generator):
+                static.set_state(x.get_state())
+            else:
+                static.copy_(x)
+        self.graph.replay()
+        for static, x in pairs:
+            if isinstance(x, torch.Generator):
+                x.set_state(static.get_state())
+        for lib, n in self.launches:
+            lib.launches += n
+        self.replays += 1
+        return _map(torch.Tensor.clone, self.static_out)
+
+
+class _Call(NamedTuple):
+    bound: inspect.BoundArguments
+    dynamic: tuple  # names of the arguments that are trees of tensors
+    leaves: list  # their tensors and generators, in ``_map``'s order
+    key: tuple
+
+
+def _capture(fn, call: _Call, device) -> tuple:
+    """The first call of a key: ``fn`` run eagerly on a side stream (its
+    result is returned), then captured.  Returns ``(result, CapturedGraph)``."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn(*call.bound.args, **call.bound.kwargs)
+    current.wait_stream(side)
+    # the result was made on the side stream and is used on the current one
+    _map(lambda t: t.record_stream(current), out)
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    static_in = []
+    for x in call.leaves:
+        if isinstance(x, torch.Generator):
+            # the graph draws from a generator of its own, whose state each
+            # replay takes from the caller's and hands back
+            static_in.append(torch.Generator(device=x.device))
+            graph.register_generator_state(static_in[-1])
+        else:
+            static_in.append(x.clone())
+    it = iter(static_in)
+    bound = inspect.BoundArguments(call.bound.signature, dict(call.bound.arguments))
+    for name in call.dynamic:
+        bound.arguments[name] = _map(lambda _x: next(it), bound.arguments[name])
+    before = [(lib, lib.launches) for lib in cuda_lib.LIBRARIES]
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph):
+            static_out = fn(*bound.args, **bound.kwargs)
+    except Exception as e:
+        # a failed capture leaves the generators it drew from in capture mode:
+        # the default one gets a fresh copy of its state
+        default = torch.cuda.default_generators[device.index]
+        default.graphsafe_set_state(default.clone_state())
+        raise RuntimeError(f"capturing {getattr(fn, '__name__', fn)!r} into a CUDA graph failed (a host sync, "
+                           f"or work on another stream or card, inside it?): {e} ({e.__context__})") from e
+    finally:
+        # a capture launches nothing: its launches are counted on each replay
+        launches = [(lib, lib.launches - n) for lib, n in before]
+        for lib, n in before:
+            lib.launches = n
+    nodes = _node_count(graph)
+    graph.instantiate()
+    seconds = time.perf_counter() - t0
+    return out, CapturedGraph(graph, static_in, static_out, [(l, n) for l, n in launches if n], nodes, seconds)
+
+
+class Compiled:
+    """``fn`` with its CUDA graphs, one per key (see the module docstring).
+    ``graphs`` maps each key to its ``CapturedGraph``."""
+
+    def __init__(self, fn: Callable, static_argnames=()):
+        self.fn = fn
+        self.signature = inspect.signature(fn)
+        self.static_argnames = frozenset(static_argnames)
+        unknown = self.static_argnames.difference(self.signature.parameters)
+        if unknown:
+            raise ValueError(f"static_argnames {sorted(unknown)} are not parameters of {fn}")
+        self.graphs: dict = {}
+        self.__name__ = getattr(fn, "__name__", type(fn).__name__)
+        self.__doc__ = getattr(fn, "__doc__", None)
+
+    def _call(self, args, kwargs) -> _Call:
+        """The call's bound arguments and key: each static argument's value,
+        each other argument's structure, and the process's switches."""
+        bound = self.signature.bind(*args, **kwargs)
+        leaves, dynamic, parts = [], [], []
+        for name, value in bound.arguments.items():
+            if name in self.static_argnames:
+                parts.append((name, value))
+            else:
+                dynamic.append(name)
+                parts.append((name, _spec(value, leaves)))
+        key = (tuple(parts), _flood.flood_route, tuple(sorted(_step.ablate)), _flood.fixed_only_prefix)
+        return _Call(bound, tuple(dynamic), leaves, key)
+
+    def __call__(self, *args, **kwargs):
+        call = self._call(args, kwargs)
+        device = _graph_device(call.leaves)
+        if device is None:
+            return self.fn(*args, **kwargs)
+        graph = self.graphs.get(call.key)
+        if graph is None:
+            out, self.graphs[call.key] = _capture(self.fn, call, device)
+            return out
+        return graph.replay(call.leaves)
+
+
+def compiled(fn: Callable, static_argnames=()) -> Compiled:
+    """``fn`` captured into a CUDA graph per key and replayed (``jax.jit``'s
+    counterpart; the module docstring says what a graph may hold)."""
+    return Compiled(fn, static_argnames)

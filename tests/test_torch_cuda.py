@@ -1,7 +1,8 @@
 """The port on a CUDA card: each flood kernel against its plain version, on the
 rollout of its route, and on bad input; the stateless step, the area score,
 the net and the search against the CPU plain path; the step's ablation
-switches and ``measure_convergence``'s kernel check.  Imports no JAX, so it runs on a machine without
+switches and ``measure_convergence``'s kernel check; the compiled forms
+(CUDA graphs) against their eager functions.  Imports no JAX, so it runs on a machine without
 it (``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``); every
 test skips where there is no card.
 """
@@ -557,3 +558,221 @@ def test_measure_convergence_kernel_word_equals_the_counted_fixpoint(cuda_device
     assert rec["kernel_checked_steps"] == 8 and rec["kernel_mismatch_steps"] == 0
     assert rec["step_launches"] == 8 + 1  # one a step, one seeding
     assert rec["per_env"]["max"] < rec["maxk"] - 2
+
+
+# --- the compiled forms (utils.graphs): each against its eager function ---
+
+_FIELDS = ("actions", "rewards", "dones", "invalid", "final_states")
+
+
+def _device_policy(generator, states):
+    """A policy of the card alone (a graph may hold it): the uniform sampler."""
+    from gymgo_tpu_torch.core.actions import uniform_random_actions
+
+    return uniform_random_actions(generator, states)
+
+
+def _midgame(device, n, b, steps=60):
+    cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
+    return rollout(torch.Generator(device=device).manual_seed(n), batch_init_state(b, n, device=device), steps,
+                   cfg).final_states
+
+
+@pytest.mark.parametrize("policy", [None, _device_policy], ids=["sampler", "policy_fn"])
+def test_compiled_rollout_equals_eager_over_replays_and_a_shape_change(policy, cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    cfg = EnvConfig(board_size=9, batch_size=96, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    assert env.compiled
+    states = _midgame(cuda_device, 9, 96)
+    kw = {} if policy is None else {"policy_fn": policy}
+    gc, ge = (torch.Generator(device=cuda_device).manual_seed(3) for _ in range(2))
+    for rows in (96, 96, 96, 40, 40, 40):  # a first call, two replays; then a new shape
+        launches = tbundle.BUNDLE_FLOOD.launches
+        got = env.rollout(gc, states[:rows], 30, **kw)
+        assert tbundle.BUNDLE_FLOOD.launches - launches == 30 + 1  # one a step, one seeding
+        want = rollout(ge, states[:rows], 30, cfg, **kw)
+        for field in _FIELDS:
+            assert torch.equal(getattr(got, field), getattr(want, field)), field
+        assert torch.equal(gc.get_state(), ge.get_state())
+        states = torch.cat([got.final_states, states[rows:]])
+    assert [g.replays for g in env._rollout.graphs.values()] == [2, 2]
+    # another generator of the same seed: the same graph, the same draws
+    got = env.rollout(torch.Generator(device=cuda_device).manual_seed(11), states[:40], 30, **kw)
+    want = rollout(torch.Generator(device=cuda_device).manual_seed(11), states[:40], 30, cfg, **kw)
+    assert torch.equal(got.actions, want.actions) and torch.equal(got.final_states, want.final_states)
+    assert [g.replays for g in env._rollout.graphs.values()] == [2, 3]
+    # collect_obs is static: a graph of its own, equal to the eager one
+    got = env.rollout(gc, states, 8, collect_obs=True, **kw)
+    got = env.rollout(gc, states, 8, collect_obs=True, **kw)
+    want = rollout(ge, states, 8, cfg, collect_obs=True, **kw)
+    want = rollout(ge, states, 8, cfg, collect_obs=True, **kw)
+    assert torch.equal(got.obs, want.obs) and torch.equal(got.final_states, want.final_states)
+
+
+def test_compiled_step_and_sampler_equal_eager(cuda_device):
+    from gymgo_tpu_torch.core.actions import uniform_random_actions
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, batch_step
+
+    cfg = EnvConfig(board_size=19, batch_size=64, reward_method="real", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    states = _midgame(cuda_device, 19, 64, 300)
+    gc, ge = (torch.Generator(device=cuda_device).manual_seed(4) for _ in range(2))
+    for rows in (64, 64, 64, 17, 17, 17):
+        got_a, want_a = env.uniform_random_actions(gc, states[:rows]), uniform_random_actions(ge, states[:rows])
+        assert torch.equal(got_a, want_a)
+        launches = tbundle.BUNDLE_FLOOD.launches
+        got_s, got_r = env.step(states[:rows], got_a)
+        assert tbundle.BUNDLE_FLOOD.launches - launches == 2  # the stateless step: before and after the move
+        want_s, want_r = batch_step(states[:rows], want_a, cfg)
+        assert torch.equal(got_s, want_s) and all(torch.equal(x, y) for x, y in zip(got_r, want_r))
+        states = torch.cat([got_s, states[rows:]])
+    assert [g.replays for g in env._step.graphs.values()] == [2, 2]
+
+
+def test_replayed_windows_make_no_host_sync(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    cfg = EnvConfig(board_size=19, batch_size=256, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    states = _midgame(cuda_device, 19, 256)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    first = env.rollout(g, states, 16)  # runs eagerly and captures
+    actions = env.uniform_random_actions(g, first.final_states)
+    env.step(first.final_states, actions)
+    launches = tbundle.BUNDLE_FLOOD.launches
+    with _no_host_sync():
+        r = env.rollout(g, first.final_states, 16)
+        env.uniform_random_actions(g, r.final_states)
+        env.step(r.final_states, actions)
+    assert tbundle.BUNDLE_FLOOD.launches - launches == 16 + 1 + 2
+    assert not r.invalid.any()
+
+
+def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    cfg = EnvConfig(board_size=9, batch_size=64, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    states = _midgame(cuda_device, 9, 64)
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        assert not env.compiled
+        launches = tminmax.MINMAX_FLOOD.launches
+        got = env.rollout(torch.Generator(device=cuda_device).manual_seed(6), states, 20)
+        assert tminmax.MINMAX_FLOOD.launches - launches == 20 + 1 and not env._rollout.graphs
+    finally:
+        tflood.set_flood_route(previous)
+    assert env.compiled
+    want = env.rollout(torch.Generator(device=cuda_device).manual_seed(6), states, 20)
+    for field in _FIELDS:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+def test_a_capture_that_syncs_raises_and_leaves_the_generator_usable(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    def syncing_policy(generator, states):
+        n_done = int(states[:, 5, 0, 0].sum())  # a host sync
+        return torch.full((states.shape[0],), states.shape[-1] ** 2 + n_done * 0, dtype=torch.int32,
+                          device=states.device)
+
+    cfg = EnvConfig(board_size=9, batch_size=32, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        env.rollout(g, env.reset(), 4, policy_fn=syncing_policy)
+    assert not env._rollout.graphs
+    r = env.rollout(g, env.reset(), 4)
+    assert r.actions.shape == (4, 32) and torch.rand(2, device=cuda_device).shape == (2,)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_compiled_sharded_env_equals_the_eager_unsharded_one(k, cuda_device):
+    from gymgo_tpu_torch.env.batch_env import batch_step
+    from gymgo_tpu_torch.parallel import ShardedGoEnv, make_mesh
+
+    cfg = EnvConfig(board_size=19, batch_size=128, reward_method="heuristic", auto_reset=True)
+    env = ShardedGoEnv(cfg, make_mesh(devices=[cuda_device] * k))
+    assert env.compiled
+    states = _midgame(cuda_device, 19, 128)
+    gc, ge = (torch.Generator(device=cuda_device).manual_seed(8) for _ in range(2))
+    for _ in range(3):
+        launches = tbundle.BUNDLE_FLOOD.launches
+        got = env.rollout(gc, states, 16)
+        assert tbundle.BUNDLE_FLOOD.launches - launches == k * (16 + 1)
+        want = rollout(ge, states, 16, cfg)
+        for field in _FIELDS:
+            assert torch.equal(getattr(got, field), getattr(want, field)), field
+        acts = got.actions[-1]
+        got_s, got_r = env.step(got.final_states, acts)
+        want_s, want_r = batch_step(want.final_states, acts, cfg)
+        assert torch.equal(got_s, want_s) and all(torch.equal(x, y) for x, y in zip(got_r, want_r))
+        states = got_s
+    assert [g.replays for g in env._rollout.graphs.values()] == [2]
+    assert [g.replays for g in env._step.graphs.values()] == [2]
+
+
+def test_jitted_train_step_on_the_card_matches_eager(cuda_device, float32_without_tf32):
+    """Three AdamW steps of the compiled step against ``train_step`` on a
+    copy of the net whose optimizer is capturable too (the same arithmetic),
+    the batch shape changed at the third: bit for bit."""
+    from gymgo_tpu_torch.models.az_net import AZNetConfig, init_params
+    from gymgo_tpu_torch.rl.learner import make_jitted_train_step, make_train_state, train_step
+
+    cfg = AZNetConfig(board_size=9, channels=32, blocks=2, dtype=torch.float32)
+    nets = [init_params(torch.Generator().manual_seed(0), cfg).to(cuda_device) for _ in range(2)]
+    eager, jit_state = make_train_state(nets[0], 1e-3), make_train_state(nets[1], 1e-3)
+    for group in eager.optimizer.param_groups:
+        group["capturable"] = True
+    step = make_jitted_train_step(jit_state)
+    rng = np.random.default_rng(9)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, rows in enumerate((48, 48, 48, 32)):
+            obs = torch.from_numpy(midgame_states(9, rows, 20, i)).to(cuda_device)
+            pi = torch.softmax(torch.from_numpy(rng.standard_normal((rows, 82)).astype(np.float32)), 1)
+            v = torch.from_numpy(rng.choice([-1.0, 1.0], rows).astype(np.float32))
+            mask = torch.from_numpy(rng.random(rows) < 0.9)
+            batch = tuple(x.to(cuda_device) for x in (obs, pi, v, mask, mask))
+            eager, want = train_step(eager, batch)
+            jit_state, got = step(jit_state, batch)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (i, k)
+            for p, q in zip(eager.net.parameters(), jit_state.net.parameters()):
+                assert torch.equal(p, q), i
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert jit_state.step == 4
+    nets[1].zero_grad(set_to_none=True)
+    with pytest.raises(RuntimeError, match="replaced"):
+        step(jit_state, batch)
+
+
+def test_compiled_gogame_functions_equal_eager_on_the_card(cuda_device):
+    from gymgo_tpu_torch import gogame
+
+    states = torch.from_numpy(midgame_states(19, 8, 120, 10)).to(cuda_device)
+    actions = torch.arange(8, dtype=torch.int32, device=cuda_device) * 40
+    calls = [(gogame._step_states, (states, actions), {}), (gogame._batch_canonical, (states,), {}),
+             (gogame._children_jit, (states[0],), {"canonical": True}), (gogame._areas_jit, (states,), {}),
+             (gogame._num_liberties_jit, (states,), {}), (gogame._liberties_jit, (states,), {})]
+    for fn, args, kw in calls:
+        want = fn.fn(*args, **kw)
+        for _ in range(3):
+            got = fn(*args, **kw)
+            flat = (lambda t: list(t) if isinstance(t, tuple) else [t])
+            got_l = [y for x in flat(got) for y in flat(x)]
+            want_l = [y for x in flat(want) for y in flat(x)]
+            assert all(torch.equal(a, b) for a, b in zip(got_l, want_l)), fn.__name__
+        assert any(g.replays >= 2 for g in fn.graphs.values()), fn.__name__
+    # a game through the facade, GoEnv's path: the card equals the CPU
+    np.random.seed(0)
+    state = gogame.init_state(19)
+    for _ in range(40):
+        action = gogame.random_action(state)
+        on_card = gogame.next_state(state, action, device=cuda_device)
+        assert np.array_equal(on_card, gogame.next_state(state, action, device="cpu"))
+        state = on_card
