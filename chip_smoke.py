@@ -46,17 +46,20 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      card against the same module on the CPU (TF32 off, atol 2e-4), bfloat16
      against float32 on the card, and the forward time at B = 512 in both;
  13. search at full width: ``run_gumbel_mcts``, 32 simulations, 16 considered,
-     B = 256 states of phase 4, the 128x6 net in bfloat16: legal actions,
-     32 visits per env, policies that sum to 1 and vanish on invalid moves,
-     the same result from the same seed; searches/s, ms, kernel launches and
-     host syncs per simulation, bundle launches; then B = 32, 16 simulations,
-     float32, injected noise, replayed on the CPU plain path;
- 14. a match: ``play_match`` on 9x9, the committed ``az9_r5_iter100`` net with
+     B = 256 states of phase 4, the 128x6 net in bfloat16 (a CUDA graph: the
+     warm-up call captures it, the measured calls replay it):
+     legal actions, 32 visits per env, policies that sum to 1 and vanish on
+     invalid moves, the same result from the same seed; searches/s, ms,
+     kernel launches and host syncs per simulation, bundle launches; then
+     B = 32, 16 simulations, float32, injected noise, replayed on the CPU
+     plain path;
+ 14. a match (each ply a replayed graph): ``play_match`` on 9x9, the committed ``az9_r5_iter100`` net with
      the full search wrapped in ``with_pass_to_win`` against the uniform
      sampler, 128 games to the move cap of 243, which it must win at 0.85 or
      better by area; then 8 plies of the same at 19x19 with the 128x6 net,
      B = 128, 4 opening moves;
- 15. training at full width: ``params_to_ckpt``'s tree of the committed 19x19
+ 15. training at full width (each self-play move a replayed graph):
+     ``params_to_ckpt``'s tree of the committed 19x19
      128x6 iter-830 net (fresh AdamW, an empty replay of 65536 rows, 512 fresh
      boards, iteration 830) resumed by ``gymgo_tpu_torch.train.Trainer`` for 2
      iterations of the recipe that trained it (envs 512, Gumbel 32/16,
@@ -102,7 +105,7 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      --channels 128 --blocks 6 --batch-sweep 128,256,512 --repeats 3``, as
      subprocesses, their JSON line and table parsed;
  20. GTP on the card at full width, the committed 19x19 128x6 net, komi 7.5,
-     the match pass rule on: (a) ``make_net_genmove(..., simulations=32,
+     the match pass rule on (the movers replay graphs): (a) ``make_net_genmove(..., simulations=32,
      search="gumbel")`` in ``GTPEngine(19, backend="native")``, 24 genmoves
      answered by seeded random ``play`` replies: every response '=', every
      move legal for the native engine, exactly 2 x 32 bundle launches per
@@ -196,14 +199,29 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      whose AdamW is capturable too (cuDNN deterministic), bit for bit over 3
      steps, ms of each; (g) a 19x19 ``GoEnv`` game on the card through the
      compiled ``gogame`` step and again through the eager one: equal at every
-     step, ms of each.
+     step, ms of each;
+ 26. the compiled search (``run_gumbel_mcts``, ``run_mcts`` and
+     ``compact_subtree``, the self-play move, the match ply, each a CUDA
+     graph) against its eager form (``utils.graphs.eager``) in the same call:
+     (a) cell 3's search (B = 256, 128x6 bfloat16, Gumbel 32/16) bit for bit
+     over the first call and 2 replays, 64 bundle launches and no host sync
+     in a replay, ms per simulation and searches/s of both forms in turns,
+     each one's device busy share and kernels per simulation under the
+     profiler, the graph's nodes and capture seconds, and the walk's device
+     us a simulation (the search's 32 walks alone, one graph, CUDA events);
+     (b) PUCT 32 with subtree reuse over 4 genmoves and their replies, moves
+     and carried trees equal to the eager mover's; (c) cell 5's self-play
+     window (envs 512, 8 moves) compiled (capturing, then replayed) equal to
+     the eager one row for row, seconds of each; (d) a 9x9 match of 16
+     games, 4 opening moves, cap 60, tallies and final states equal; (e) the
+     19x19 Gumbel ``genmove`` at B = 1, ms and busy share of both forms.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
 20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
-measurement layer, 25 the compiled forms; the launch counts are set to 0 before the search, each
+measurement layer, 25-26 the compiled forms; the launch counts are set to 0 before the search, each
 match, the training run, the ``gogame`` game, the ``GoEnv`` games, phase 20,
 each sharded rollout of 22a, each ablation's windows, each layout's
-search and phase 25's compiled windows, and read after.  After phase
+search, phase 25's compiled windows and phase 26's searches, and read after.  After phase
 15, a replay of the recipe's size takes one add of more rows than its
 capacity (81,920 into 65,536): every slot must hold one whole row, the last
 65,536 in order.
@@ -358,16 +376,20 @@ def time_ms(fn, reps):
 
 @contextlib.contextmanager
 def host_syncs():
-    """Yields a list that gains one warning per synchronizing CUDA call made
-    inside the block (PyTorch's sync debug mode, set to warn)."""
+    """Yields a list that holds, after the block, one warning per
+    synchronizing CUDA call made inside it (PyTorch's sync debug mode, set to
+    warn; other warnings, such as the mode's notice at its first use in a
+    process that it is a prototype, are left out)."""
     previous = torch.cuda.get_sync_debug_mode()
+    syncs = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            yield caught
+            yield syncs
         finally:
             torch.cuda.set_sync_debug_mode(previous)
+    syncs.extend(w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message))
 
 
 def device_profile(fn):
@@ -1797,9 +1819,8 @@ def compiled_path(dev, states, bundle_lib, minmax_lib):
     # (b) no host sync inside a replayed window
     with host_syncs() as caught:
         env.rollout(gc, s, WINDOW)
-    syncs = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
-    if syncs:
-        fail(f"25b: a replayed window made {len(syncs)} host syncs: {syncs[0].message}")
+    if caught:
+        fail(f"25b: a replayed window made {len(caught)} host syncs: {caught[0].message}")
 
     # (c) a replayed window and an eager one under the profiler: the bundle kernel's launches by the
     # profiler's count and by the counter, kernels a step, the device's busy share.  The profiler has
@@ -1941,6 +1962,216 @@ def compiled_path(dev, states, bundle_lib, minmax_lib):
     return sum(per_call)
 
 
+def compiled_search_path(dev, states, bundle_lib, minmax_lib):
+    """Phase 26: the compiled search (CUDA graphs of ``run_gumbel_mcts``,
+    ``run_mcts`` + ``compact_subtree``, the self-play move and the match ply)
+    against its eager form (``utils.graphs.eager``) in the same call, from
+    phase 4's steady-state 19x19 ``states``.  Returns the bundle kernel's
+    launches in (a)'s replayed searches."""
+    from gymgo_tpu_torch.config import EnvConfig
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core.actions import uniform_random_actions
+    from gymgo_tpu_torch.native import NativeGoEngine
+    from gymgo_tpu_torch.rl import treewalk
+    from gymgo_tpu_torch.rl.evaluate import play_match, with_pass_to_win
+    from gymgo_tpu_torch.rl.gumbel_mcts import make_gumbel_mcts_policy, run_gumbel_mcts
+    from gymgo_tpu_torch.rl.selfplay import selfplay_gumbel_rollout
+    from gymgo_tpu_torch.utils.graphs import compiled, eager
+    from gymgo_tpu_torch.utils.gtp import make_net_genmove
+
+    SIMS, CONSIDERED, B = 32, 16, 256
+    t_phase = time.perf_counter()
+    net16 = load_aznet_npz(NET_19, device=dev, dtype=torch.bfloat16)
+    roots = states[:B].clone()
+    kw = dict(num_simulations=SIMS, max_considered=CONSIDERED)
+
+    def same(x, y):
+        return all(torch.equal(p, q) for p, q in zip(x, y))
+
+    def search(seed, form):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with form():
+            return run_gumbel_mcts(gen, roots, net16, **kw)
+
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # (a) cell 3: the compiled search against the eager one from the same seed, bit for bit, over the first
+    # call (eager, then the capture) and two replays; launches, syncs, times, the device's busy share
+    bundle_lib.launches = minmax_lib.launches = 0
+    for i in range(3):
+        if not same(search(SEED + 26 + i, contextlib.nullcontext), search(SEED + 26 + i, eager)):
+            fail(f"26a: the compiled search differs from the eager one at call {i}")
+    graph = run_gumbel_mcts.graphs[run_gumbel_mcts._call((torch.Generator(device=dev), roots, net16), kw).key]
+    before = bundle_lib.launches
+    search(SEED + 26, contextlib.nullcontext)
+    replay_launches = bundle_lib.launches - before
+    if replay_launches != 2 * SIMS or minmax_lib.launches:
+        fail(f"26a: a replayed search launched the bundle kernel {replay_launches} times (expected {2 * SIMS}), "
+             f"the min/max kernel {minmax_lib.launches}")
+    with host_syncs() as caught:
+        search(SEED + 26, contextlib.nullcontext)
+    if caught:
+        fail(f"26a: a replayed search made {len(caught)} host syncs: {caught[0].message}")
+    times = {"compiled": [], "eager": []}
+    for form in ("compiled", "eager", "eager", "compiled", "compiled", "eager"):
+        ctx = contextlib.nullcontext if form == "compiled" else eager
+        times[form].append(wall_s(lambda: search(SEED + 26, ctx)))
+    prof = {}
+    for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+        wall_us, rows = device_profile(lambda: search(SEED + 26, ctx))
+        busy_us = sum(r[0] for r in rows)
+        if busy_us <= 0:
+            fail(f"26a: the profiler saw no device time in the {form} search")
+        prof[form] = (wall_us / SIMS, busy_us / SIMS, 100 * busy_us / wall_us, sum(r[1] for r in rows) / SIMS)
+
+    # the walk alone: the search's 32 walks (bounds 1..32, the forced root) on (B, 33) tables, one graph,
+    # by CUDA events; a walk's work does not depend on the tables' values
+    m = SIMS + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    j = torch.arange(m, device=dev)
+    step = torch.randint(1, m, (B, m), generator=g, device=dev)
+    nxt = torch.where(j + step < m, j + step, -1).to(torch.int32)
+    best = torch.randint(0, 362, (B, m), generator=g, device=dev, dtype=torch.int32)
+    keep = (nxt >= 0) & (torch.rand((B, m), generator=g, device=dev) < 0.9)
+    f_act = torch.randint(0, 362, (B,), generator=g, device=dev)
+    f_nxt, f_keep = nxt[:, 0], keep[:, 0]
+
+    def walks(best, nxt, keep, f_act, f_nxt, f_keep):
+        return torch.stack([treewalk.walk_paths(best, nxt, keep, m, forced_root=(f_act, f_nxt, f_keep),
+                                                depth_bound=sim + 1)[0] for sim in range(SIMS)])
+
+    walks_c = compiled(walks)
+    walk_args = (best, nxt, keep, f_act, f_nxt, f_keep)
+    if not torch.equal(walks_c(*walk_args), walks(*walk_args)):
+        fail("26a: the walks' graph differs from the eager walks")
+    walk_us = time_ms(lambda: walks_c(*walk_args), 20) * 1e3 / SIMS
+    (walk_graph,) = walks_c.graphs.values()
+    c_wall, c_busy, c_share, c_kernels = prof["compiled"]
+    e_wall, e_busy, e_share, e_kernels = prof["eager"]
+    ms_c, ms_e = min(times["compiled"]), min(times["eager"])
+    print(f"[26a compiled search] 19x19 128x6 bfloat16, B={B}, Gumbel {SIMS}/{CONSIDERED}: compiled == eager bit "
+          f"for bit over the first call and 2 replays (actions, improved policy, root value, visits, candidates); "
+          f"a replay launches the bundle kernel {replay_launches} times (2 a simulation) and makes 0 host syncs; "
+          f"compiled {1e3 * ms_c / SIMS:.3f} ms/simulation, {B / ms_c:.1f} searches/s (runs "
+          f"{', '.join(f'{1e3 * t:.1f}' for t in times['compiled'])} ms); eager {1e3 * ms_e / SIMS:.3f} "
+          f"ms/simulation, {B / ms_e:.1f} searches/s (runs {', '.join(f'{1e3 * t:.1f}' for t in times['eager'])} "
+          f"ms); under the profiler, per simulation: compiled {c_wall:.1f} us wall, device busy {c_busy:.1f} us "
+          f"({c_share:.1f}%), {c_kernels:.1f} kernels; eager {e_wall:.1f} us wall, busy {e_busy:.1f} us "
+          f"({e_share:.1f}%), {e_kernels:.1f} kernels; graph {graph.nodes} nodes ({graph.nodes / SIMS:.1f} a "
+          f"simulation), captured in {graph.capture_seconds:.3f} s; the walk alone {walk_us:.1f} us of device "
+          f"time a simulation ({100 * walk_us / c_busy:.1f}% of the compiled simulation's busy time; "
+          f"{walk_graph.nodes / SIMS:.1f} nodes a simulation)", flush=True)
+
+    # (b) PUCT, 32 simulations, subtree reuse, over 4 genmoves and the opponent's replies: the compiled
+    # mover against the eager one, moves and carried trees equal
+    N19, KOMI = 19, 7.5
+    movers = [make_net_genmove(str(NET_19), N19, 128, 6, simulations=SIMS, komi=KOMI, seed=SEED, search="puct",
+                               device=dev) for _ in range(2)]
+    forms = (contextlib.nullcontext, eager)
+    referee, rng = NativeGoEngine(N19), np.random.default_rng(SEED + 26)
+    state = np.zeros((6, N19, N19), np.int8)
+    puct_ms = {"compiled": [], "eager": []}
+    for i in range(4):
+        moves = []
+        for mover, ctx, form in zip(movers, forms, puct_ms):
+            t0 = time.perf_counter()
+            with ctx():
+                moves.append(mover(state))
+            puct_ms[form].append(1e3 * (time.perf_counter() - t0))
+        if moves[0] != moves[1] or not same(movers[0]._tree, movers[1]._tree):
+            fail(f"26b: the compiled PUCT mover differs from the eager one at genmove {i}: {moves}")
+        legal = np.flatnonzero(state[3].reshape(-1) == 0)
+        for action in (moves[0], int(rng.choice(legal[legal != moves[0]]))):
+            for mover, ctx in zip(movers, forms):
+                with ctx():
+                    mover.on_move(action)
+            state, status = referee.next_state(state, action)
+            if status != 0:
+                fail(f"26b: move {action} after genmove {i} is illegal")
+        if not same(movers[0]._tree, movers[1]._tree):
+            fail(f"26b: the carried trees differ after genmove {i}")
+    print(f"[26b compiled PUCT genmove] 19x19 128x6 bfloat16, {SIMS} simulations, subtree reuse, 4 genmoves and "
+          f"the replies: moves and carried trees equal to the eager mover's; ms per genmove compiled "
+          f"{spread(puct_ms['compiled'][1:])} (the first, with the capture, {puct_ms['compiled'][0]:.1f}), eager "
+          f"{spread(puct_ms['eager'])}", flush=True)
+
+    # (c) cell 5's self-play window (envs 512, 8 moves, Gumbel 32/16): compiled (the first window captures,
+    # the second replays every move) against eager, every row equal
+    ENVS, STEPS = 512, 8
+    cfg = EnvConfig(board_size=N19, batch_size=ENVS, auto_reset=True)
+    start = states[:ENVS].clone()
+    window_kw = dict(pass_min_stones=N19 * N19 // 2, **kw)
+
+    def window(form):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+        with form():
+            return selfplay_gumbel_rollout(gen, start, net16, STEPS, cfg, **window_kw)
+
+    window_s = {}
+    results = {}
+    for form, ctx in (("first", contextlib.nullcontext), ("eager", eager), ("replayed", contextlib.nullcontext)):
+        t0 = time.perf_counter()
+        results[form] = window(ctx)
+        results[form][1].mask.any().item()
+        window_s[form] = time.perf_counter() - t0
+    for form in ("first", "replayed"):
+        final, batch = results[form]
+        if not (torch.equal(final, results["eager"][0]) and same(batch, results["eager"][1])):
+            fail(f"26c: the {form} compiled self-play window differs from the eager one")
+    print(f"[26c compiled self-play] 19x19 envs {ENVS}, {STEPS} moves, Gumbel {SIMS}/{CONSIDERED}: rows and final "
+          f"states equal to the eager window's (the capturing window and a replayed one); "
+          f"{window_s['replayed']:.3f} s a replayed window ({ENVS * STEPS / window_s['replayed']:.1f} env-steps/s), "
+          f"{window_s['first']:.3f} s with the capture, {window_s['eager']:.3f} s eager "
+          f"({ENVS * STEPS / window_s['eager']:.1f} env-steps/s)", flush=True)
+
+    # (d) a 9x9 match of 16 games (the search with pass-to-win against the uniform sampler): compiled
+    # plies against eager ones, tallies and final states equal
+    net9 = load_aznet_npz(NET_9, device=dev, dtype=torch.bfloat16)
+    policy = with_pass_to_win(make_gumbel_mcts_policy(net9, pass_min_stones=1 << 20, **kw))
+    match_s, matches = {}, {}
+    for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+        t0 = time.perf_counter()
+        with ctx():
+            matches[form] = play_match(torch.Generator(device=dev).manual_seed(SEED + 29), policy,
+                                       uniform_random_actions, EnvConfig(board_size=9), num_games=16,
+                                       max_steps=60, opening_moves=4, with_states=True, device=dev)
+        match_s[form] = time.perf_counter() - t0
+    (rc, sc), (re_, se) = matches["compiled"], matches["eager"]
+    if not (torch.equal(sc, se) and same(rc, re_)):
+        fail("26d: the compiled match differs from the eager one")
+    print(f"[26d compiled match] 9x9 {NET_9.name} bfloat16, search {SIMS}/{CONSIDERED} with pass-to-win vs "
+          f"uniform random, 16 games, 4 opening moves, cap 60: tallies and final states equal to the eager "
+          f"match's ({json.dumps({k: v.item() for k, v in rc._asdict().items()})}); compiled "
+          f"{match_s['compiled']:.2f} s (with 2 captures), eager {match_s['eager']:.2f} s", flush=True)
+
+    # (e) one 19x19 genmove at B = 1 (cell 7), the Gumbel mover, compiled and eager
+    gumbel_mover = make_net_genmove(str(NET_19), N19, 128, 6, simulations=SIMS, komi=KOMI, seed=SEED,
+                                    search="gumbel", device=dev)
+    genmove_ms, busy = {"compiled": [], "eager": []}, {}
+    gumbel_mover(state)  # the capture
+    for form in ("compiled", "eager", "eager", "compiled", "compiled", "eager"):
+        ctx = contextlib.nullcontext if form == "compiled" else eager
+        genmove_ms[form].append(1e3 * wall_s(lambda: _in(ctx, gumbel_mover, state)))
+    for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+        wall_us, rows = device_profile(lambda: _in(ctx, gumbel_mover, state))
+        busy[form] = 100 * sum(r[0] for r in rows) / wall_us
+    print(f"[26e compiled genmove] 19x19 128x6 bfloat16, Gumbel {SIMS}/{CONSIDERED}, B=1: ms per genmove "
+          f"compiled {spread(genmove_ms['compiled'])}, eager {spread(genmove_ms['eager'])}; device busy under "
+          f"the profiler compiled {busy['compiled']:.1f}%, eager {busy['eager']:.1f}%; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return replay_launches
+
+
+def _in(ctx, fn, *args):
+    with ctx():
+        return fn(*args)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -1956,6 +2187,7 @@ def main() -> int:
 
     tflood.set_flood_route("bitpack")  # phases 3-7 run the default route
 
+    t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
@@ -2139,24 +2371,34 @@ def main() -> int:
           f"(again {mm_ms_2:.4f}), plain {mm_plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms "
           f"({(2 + 4) * B * N * N} bytes at 3.35 TB/s)", flush=True)
 
-    play_launches, play_minmax_launches = play_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
-    with tempfile.TemporaryDirectory() as workdir:
-        train_launches, train_minmax_launches = train_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD,
-                                                           Path(workdir))
+    seconds = {"1-11": time.perf_counter() - t_main}
 
-    gogame_launches, gogame_minmax = gogame_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
-    env_launches, env_minmax = go_env_path(dev, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
-    bench_records = benches()
-    gtp_launches, gtp_minmax = gtp_path(dev, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    play_launches, play_minmax_launches = phase("12-14", play_path, dev, states, *libs)
     with tempfile.TemporaryDirectory() as workdir:
-        tools(Path(workdir))
+        train_launches, train_minmax_launches = phase("15-16", train_path, dev, states, *libs, Path(workdir))
+
+    gogame_launches, gogame_minmax = phase("17", gogame_path, dev, states, *libs)
+    env_launches, env_minmax = phase("18", go_env_path, dev, *libs)
+    bench_records = phase("19", benches)
+    gtp_launches, gtp_minmax = phase("20", gtp_path, dev, *libs)
     with tempfile.TemporaryDirectory() as workdir:
-        sharded_launches, _ = sharding_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD, Path(workdir))
-    soak_launches = soak()
-    ablation_launches = ablation_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
-    layout_launches = layouts_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
-    study_launches = studies()
-    compiled_launches = compiled_path(dev, states, bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+        phase("21", tools, Path(workdir))
+    with tempfile.TemporaryDirectory() as workdir:
+        sharded_launches, _ = phase("22", sharding_path, dev, states, *libs, Path(workdir))
+    soak_launches = phase("23", soak)
+    ablation_launches = phase("24a", ablation_path, dev, states, *libs)
+    layout_launches = phase("24b", layouts_path, dev, states, *libs)
+    study_launches = phase("24c", studies)
+    compiled_launches = phase("25", compiled_path, dev, states, *libs)
+    compiled_search_launches = phase("26", compiled_search_path, dev, states, *libs)
+    print(f"[seconds] each phase's: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "bundle_flood",
@@ -2176,6 +2418,7 @@ def main() -> int:
         "launches_layouts": layout_launches,
         "launches_studies": study_launches,
         "launches_compiled": compiled_launches,
+        "launches_compiled_search": compiled_search_launches,
         "max_abs_err": max_err,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": plain_ms,

@@ -5,7 +5,9 @@ Times complete searches of ``rl.mcts.run_mcts`` (PUCT over the exact env
 step) and ``rl.gumbel_mcts.run_gumbel_mcts`` (sequential halving) from
 mid-game boards (2 x 64 uniform-random rollout steps), with a fresh
 ``init_params`` net in float32; each search ends on a scalar fetch, which
-waits for the card.  ``--batch-sweep`` runs this module once per batch size
+waits for the card.  On the card a search replays its CUDA graph
+(``utils.graphs.compiled``): the warm-up search runs eagerly and captures it,
+the timed ones replay it.  ``--batch-sweep`` runs this module once per batch size
 and prints a decisions/s-against-batch table from the ``BENCHJSON`` line each
 run prints.
 

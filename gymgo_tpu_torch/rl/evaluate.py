@@ -5,6 +5,15 @@ Two policies play a batch of games against each other, alternating colours
 across the batch to cancel the first-move advantage: each ply evaluates both
 policies and selects per env by whose turn it is.  Reports win and draw
 tallies, the evaluation leg of the AZ loop.
+
+On the card one ply (both policies, the opening override, the step) is one
+CUDA graph, the body of the JAX package's ``lax.scan`` over the plies
+(``_ply``, ``utils.graphs.compiled``, keyed by the two policies by identity:
+a policy object built once replays across matches).  The "every game is
+done" check stays between the replays, one host read a ply.  A policy must
+be a function of its ``(generator, states)`` on the card with no host sync:
+one that reads Python state replays what it read at the capture.  The minmax
+route and boards with N*N > 511 play eagerly (``utils.graphs.capturable``).
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.utils.graphs import capturable_states, compiled
 
 __all__ = ["MatchResult", "play_match", "with_pass_to_win"]
 
@@ -42,6 +52,24 @@ class MatchResult(NamedTuple):
 def _first_best_board_move(valid_board: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """argmax of ``noise`` over the valid board moves, int32 (B,)."""
     return torch.where(valid_board, noise, -torch.inf).argmax(dim=1).to(torch.int32)
+
+
+def _ply(generator, states, a_is_black, opening, policy_a, policy_b):
+    """One ply of a match: both policies (A draws first), the mover's
+    action, the uniform opening move of each game's pair where ``opening``
+    (float32 (pairs, N*N) noise) is given; returns the next states."""
+    acts_a = policy_a(generator, states)
+    acts_b = policy_b(generator, states)
+    a_to_move = (_state.turn(states) == 0) == a_is_black
+    acts = torch.where(a_to_move, acts_a, acts_b).to(torch.int32)
+    if opening is not None:
+        # each pair's row twice in a row, one per colour-swapped game
+        g = opening[:, None].expand(opening.shape[0], 2, opening.shape[1]).reshape(-1, opening.shape[1])
+        acts = _first_best_board_move(_actions.batch_valid_moves(states)[:, :-1] > 0, g[: states.shape[0]])
+    return _step.step_states(states, acts)[0]
+
+
+_ply = compiled(_ply, static_argnames=("policy_a", "policy_b"), when=capturable_states)
 
 
 @torch.no_grad()
@@ -90,14 +118,8 @@ def play_match(
             )
 
     for t in range(max_steps):
-        acts_a = policy_a(generator, states)
-        acts_b = policy_b(generator, states)
-        a_to_move = (_state.turn(states) == 0) == a_is_black
-        acts = torch.where(a_to_move, acts_a, acts_b).to(torch.int32)
-        if t < opening_moves:
-            g = opening_noise[t].repeat_interleave(2, dim=0)[:num_games]
-            acts = _first_best_board_move(_actions.batch_valid_moves(states)[:, :-1] > 0, g)
-        states, _ = _step.step_states(states, acts)
+        states = _ply(generator, states, a_is_black, opening_noise[t] if t < opening_moves else None,
+                      policy_a=policy_a, policy_b=policy_b)
         if bool(_state.game_ended(states).all()):
             break
 

@@ -25,6 +25,15 @@ bfloat16, so results move), and ``logp`` stores log-softmax priors plus a bool
 validity plane, which takes the log over the whole prior table out of every
 simulation.
 
+On CUDA tensors a whole search is one CUDA graph, the counterpart of the
+JAX package's ``lax.fori_loop`` over the simulations under ``jax.jit``
+(``utils.graphs.compiled``): keyed by the net (by identity), the simulation
+counts, the constants and the tree layout, replayed with the states, the
+generator and the noise copied in.  The minmax route and boards with
+N*N > 511 sync with the host and run the search eagerly
+(``utils.graphs.capturable``); ``run_gumbel_mcts.fn`` is the eager search,
+which the studies measure.
+
 Ties are resolved as in JAX so that, given the same Gumbel noise, both
 packages search the same tree: the top-k and the rank of the candidates come
 from stable descending sorts (the lower index first among equals, which is
@@ -45,12 +54,15 @@ from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.rl import treewalk as _treewalk
+from gymgo_tpu_torch.utils.graphs import capturable_states, compiled, register_key_part
 
 __all__ = ["GumbelMCTSResult", "seq_halving_schedule", "run_gumbel_mcts", "make_gumbel_mcts_policy",
            "PACK_TOKENS", "set_gumbel_pack"]
 
 PACK_TOKENS = ("i16", "bf16", "logp")
 pack = frozenset(t for t in os.environ.get("GYMGO_GUMBEL_PACK", "").split(",") if t)
+# a graph captured under one layout never replays under another
+register_key_part(lambda: tuple(sorted(pack)))
 
 
 def set_gumbel_pack(tokens) -> frozenset:
@@ -222,8 +234,9 @@ def run_gumbel_mcts(
         # edge or a terminal child.
         tables = _treewalk.node_tables(interior_scores(), child, node_done)
         f_nxt, f_keep = _treewalk.forced_root_edge(root_action, child, node_done)
+        # slots 0..sim are filled, so no path is longer than sim + 1
         sel_depth, path_n, path_a = _treewalk.walk_paths(
-            *tables, max_depth, forced_root=(root_action, f_nxt, f_keep)
+            *tables, max_depth, forced_root=(root_action, f_nxt, f_keep), depth_bound=sim + 1
         )
         last = (sel_depth - 1).clamp_min(0).to(torch.int64)[:, None]
         exp_parent = path_n.gather(1, last)[:, 0].to(torch.int64)
@@ -299,6 +312,13 @@ def run_gumbel_mcts(
         root_visits=rn.clone(),
         sampled_actions=cand.to(torch.int32),
     )
+
+
+run_gumbel_mcts = compiled(
+    run_gumbel_mcts,
+    static_argnames=("net", "num_simulations", "max_considered", "c_visit", "c_scale", "komi", "pass_min_stones"),
+    when=capturable_states,
+)
 
 
 def make_gumbel_mcts_policy(net, num_simulations=32, max_considered=16, **kw):

@@ -11,6 +11,15 @@ slot ``R + w * K + k`` (R = 1, or the warm tree's slot count).  Per
 (node, action) statistics N / W / P drive PUCT; values are stored from the
 node mover's view and flip sign at every ply of the backup.
 
+On CUDA tensors ``run_mcts`` and ``compact_subtree`` each replay a CUDA
+graph, the counterpart of the JAX package's ``lax.fori_loop`` over the waves
+under ``jax.jit`` (``utils.graphs.compiled``): a search is keyed by the net
+(by identity), the simulation counts, the constants and ``return_tree``, and
+replayed with the states, the generator, the noise and the warm statistics
+or tree copied in; ``compact_subtree`` by ``reuse_cap``.  The minmax route and
+boards with N*N > 511 sync with the host and search eagerly
+(``utils.graphs.capturable``); ``.fn`` is the eager function.
+
 Ties break as in JAX (first-of-equals argmax, ``rl.treewalk``), so with the
 same Dirichlet and pick noise both packages grow the same trees.  Output: the
 visit-count policy at the root (the AZ training target) and the root value.
@@ -27,6 +36,7 @@ from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.rl import treewalk as _treewalk
+from gymgo_tpu_torch.utils.graphs import capturable_states, compiled
 
 __all__ = [
     "MCTSResult",
@@ -147,6 +157,9 @@ def compact_subtree(tree: MCTSTree, actions: torch.Tensor, reuse_cap: int) -> MC
     )
 
 
+compact_subtree = compiled(compact_subtree, static_argnames=("reuse_cap",))
+
+
 def played_child_stats(tree: MCTSTree, actions: torch.Tensor):
     """``(visit, wsum)`` of the root child reached by ``actions``: the
     ``warm_root`` of the next ply's search.  The played child's mover is the
@@ -259,10 +272,13 @@ def run_mcts(generator, states, net, num_simulations: int = 32, c_puct: float = 
     bidx_path = bidx[:, None].expand(b, max_depth)
     depth_iota = torch.arange(max_depth, device=dev)
 
-    def select_paths(eff_visit, eff_wsum):
+    def select_paths(eff_visit, eff_wsum, filled):
+        """The wave's walk; slots [0, filled) are the only ones a path can
+        reach, so no path is longer."""
         scores = _puct_scores(prior, eff_visit, eff_wsum, c_puct)
         scores = torch.where(prior > 0, scores, -torch.inf)
-        return _treewalk.walk_paths(*_treewalk.node_tables(scores, child, node_done), max_depth)
+        return _treewalk.walk_paths(*_treewalk.node_tables(scores, child, node_done), max_depth,
+                                    depth_bound=filled)
 
     def path_index(path_n, path_a, depth):
         """(index, on_path) of a batched scatter-add over each path's edges.
@@ -276,13 +292,14 @@ def run_mcts(generator, states, net, num_simulations: int = 32, c_puct: float = 
 
     for wave in range(num_waves):
         # ---- K selections, each seeing the wave's earlier paths as losses
+        filled = r_slots + wave * k_par
         if k_par == 1:
-            paths = [select_paths(visit, wsum)]
+            paths = [select_paths(visit, wsum, filled)]
         else:
             vn = torch.zeros_like(visit)
             paths = []
             for k in range(k_par):
-                paths.append(select_paths(visit + vn, wsum - vn.to(torch.float32)))
+                paths.append(select_paths(visit + vn, wsum - vn.to(torch.float32), filled))
                 if k < k_par - 1:
                     index, on_path = path_index(paths[-1][1], paths[-1][2], paths[-1][0])
                     vn.index_put_(index, on_path.to(torch.int32), accumulate=True)
@@ -347,6 +364,14 @@ def run_mcts(generator, states, net, num_simulations: int = 32, c_puct: float = 
     if return_tree:
         return result, MCTSTree(node_states, node_done, prior, visit, wsum, child, parent)
     return result
+
+
+run_mcts = compiled(
+    run_mcts,
+    static_argnames=("net", "num_simulations", "c_puct", "komi", "dirichlet_alpha", "dirichlet_fraction",
+                     "temperature", "num_parallel", "return_tree", "pass_min_stones"),
+    when=capturable_states,
+)
 
 
 def make_mcts_policy(net, num_simulations: int = 32, **kw):

@@ -65,8 +65,10 @@ def gumbel_oneply(
     # stable: the lower index first among equals, as lax.top_k orders them
     top_actions = scores.sort(dim=1, descending=True, stable=True).indices[:, :k]
 
-    # Expand children: B * K exact env steps.
-    children, _ = _step.step_states(states.repeat_interleave(k, dim=0), top_actions.reshape(-1))
+    # Expand children: B * K exact env steps (each state K times in a row,
+    # by a view: no output size to read on the host).
+    parents = states[:, None].expand((b, k) + tuple(states.shape[1:])).reshape((b * k,) + tuple(states.shape[1:]))
+    children, _ = _step.step_states(parents, top_actions.reshape(-1))
 
     # Child value from the mover's view = -V(child for the next player);
     # terminal children take the exact outcome sign instead of the net's.

@@ -4,9 +4,16 @@
 Each row is a canonical pre-move observation, a policy target and the
 outcome z of the row's own game from the mover's view.  Action selection masks
 invalid moves with the env's own INVD channel, so generated games are legal.
-The loop over the window is eager; its outputs are preallocated ``(T, B, ...)``
-tensors, and a move makes no host sync beyond those of the search's walk
-(``rl.treewalk.walk_paths``, one per depth).
+One move of a window (reset, choose, record, step, and the PUCT mode's tree
+carried to the next move) is one CUDA graph on the card, the body of the JAX
+package's ``lax.scan`` (``_move``, ``utils.graphs.compiled``; the search
+inside it runs inline, so its kernels join the move's graph): the Python
+loop over the window replays it once a move and writes its rows into
+preallocated ``(T, B, ...)`` tensors; the value targets are computed once a
+window, eagerly.  A window keeps one graph per mode, net, configuration,
+batch and search setting, and a move makes no host sync.  The minmax route
+and boards with N*N > 511 sync and run the move eagerly
+(``utils.graphs.capturable``).
 
 Every draw the JAX package takes from a key can be handed in instead
 (``gumbel``, ``dirichlet``, ``orientations``), one row per step of the window,
@@ -15,7 +22,7 @@ so that tests give both packages the same noise.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -25,6 +32,7 @@ from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.env import batch_env as _batch_env
+from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
 __all__ = [
     "SelfPlayBatch",
@@ -129,12 +137,36 @@ def _row(noise, t):
     return None if noise is None else noise[t]
 
 
-def _window(states, num_steps: int, config: EnvConfig, act: Callable, net, value_bootstrap: bool,
-            target_net=None, after_step: Optional[Callable] = None):
-    """The loop every self-play mode shares: reset finished envs, choose
-    ``act(t, st) -> (actions, policy_target)``, step, record; then the value
-    targets.  ``after_step(actions, live, new_states)`` lets a search carry
-    its tree to the next move."""
+def _move(generator, st, noise, warm, net, config: EnvConfig, act: Callable, settings: tuple):
+    """One move of a window: reset finished envs, choose ``act(generator, st,
+    net, noise, warm, komi, **settings) -> (actions, policy_target, carry)``,
+    record, step, and carry the search's tree (``carry(actions, keep)``, or
+    None) to the next move.  Returns ``(next_states, rows, next_warm)``; the
+    rows are the move's obs, policy target, mask, mover_white, done,
+    actions, invalid and outcome sign."""
+    st = _reset_done(st, config)
+    acts, target, carry = act(generator, st, net, noise, warm, config.komi, **dict(settings))
+    live = ~_state.game_ended(st)
+    new_st, res = _batch_env.batch_step(st, acts, config)
+    if carry is not None:
+        # invalid when this root was already done (auto-reset replaced the
+        # board the tree stepped) or the game just ended
+        warm = carry(acts, live & ~_state.game_ended(new_st))
+    rows = (_transform.batch_canonical_form(st), target, live, _state.turn(st) == 1, res.done, acts,
+            res.invalid_action, _outcome_sign(res, config.komi))
+    return new_st, rows, warm
+
+
+_move = compiled(_move, static_argnames=("net", "config", "act", "settings"),
+                 when=lambda a: capturable(a["config"].board_size))
+
+
+def _window(generator, states, num_steps: int, config: EnvConfig, net, act: Callable, settings: dict,
+            value_bootstrap: bool, target_net, noise: tuple, warm=None):
+    """The loop every self-play mode shares: one ``_move`` a step (``noise``
+    a tuple of the mode's (T, B, ...) draws, each None where the generator
+    draws it, sliced per move; ``warm`` the search's first carried tree),
+    its rows written into the window's tensors; then the value targets."""
     b = states.shape[0]
     dev = states.device
     a_size = config.board_size ** 2 + 1
@@ -148,26 +180,60 @@ def _window(states, num_steps: int, config: EnvConfig, act: Callable, net, value
         invalid=torch.empty((num_steps, b), dtype=torch.bool, device=dev),
     )
     sign = torch.empty((num_steps, b), dtype=torch.float32, device=dev)
+    dests = (out["obs"], out["policy_target"], out["mask"], out["mover_white"], out["done"], out["actions"],
+             out["invalid"], sign)
+    settings = tuple(sorted(settings.items()))
     st = states
     for t in range(num_steps):
-        st = _reset_done(st, config)
-        acts, target = act(t, st)
-        live = ~_state.game_ended(st)
-        out["obs"][t] = _transform.batch_canonical_form(st)
-        out["policy_target"][t] = target
-        out["mask"][t] = live
-        out["mover_white"][t] = _state.turn(st) == 1
-        new_st, res = _batch_env.batch_step(st, acts, config)
-        out["done"][t] = res.done
-        out["actions"][t] = acts
-        out["invalid"][t] = res.invalid_action
-        sign[t] = _outcome_sign(res, config.komi)
-        if after_step is not None:
-            after_step(acts, live, new_st)
-        st = new_st
+        st, rows, warm = _move(generator, st, tuple(_row(x, t) for x in noise), warm, net=net, config=config,
+                               act=act, settings=settings)
+        for dest, x in zip(dests, rows):
+            dest[t] = x
     zf = net_value_black(st, net if target_net is None else target_net) if value_bootstrap else None
     z = per_game_value_targets(out["done"], sign, st, out["mover_white"], config.komi, z_final=zf)
     return st, SelfPlayBatch(value_target=z, grounded=grounded_rows(out["done"]), **out)
+
+
+def _act_policy(generator, st, net, noise, warm, komi, temperature, pass_min_stones):
+    acts, masked = policy_actions(generator, st, net, temperature, pass_min_stones, noise[0])
+    return acts, torch.softmax(masked, dim=-1), None
+
+
+def _act_oneply(generator, st, net, noise, warm, komi, **kw):
+    from gymgo_tpu_torch.rl.search import gumbel_oneply
+
+    res = gumbel_oneply(generator, st, net, komi=komi, gumbel=noise[0], **kw)
+    return res.actions, res.improved_policy, None
+
+
+def _act_gumbel(generator, st, net, noise, warm, komi, **kw):
+    from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
+
+    res = run_gumbel_mcts(generator, st, net, komi=komi, gumbel=noise[0], **kw)
+    return res.actions, res.improved_policy, None
+
+
+def _act_puct(generator, st, net, noise, warm, komi, **kw):
+    """PUCT with the reuse ``warm`` says: None (off), ``(visit, wsum)`` of
+    the root (``"root"``) or an ``MCTSTree`` (``"subtree"``, compacted to its
+    own slot count)."""
+    from gymgo_tpu_torch.rl.mcts import MCTSTree, compact_subtree, empty_tree, played_child_stats, run_mcts
+
+    subtree = isinstance(warm, MCTSTree)
+    warm_kw = {} if warm is None else {"warm_tree": warm} if subtree else {"warm_root": warm}
+    res, tree = run_mcts(generator, st, net, komi=komi, return_tree=True, dirichlet=noise[0], gumbel=noise[1],
+                         **warm_kw, **kw)
+
+    def carry(acts, keep):
+        if not subtree:
+            wv, ww = played_child_stats(tree, acts)
+            return torch.where(keep[:, None], wv, 0), torch.where(keep[:, None], ww, 0.0)
+        b, r_cap = warm.prior.shape[:2]
+        cold = empty_tree(b, r_cap, warm.prior.shape[2], st.shape[1:], st.dtype, device=st.device)
+        return MCTSTree(*(torch.where(keep.view((-1,) + (1,) * (x.dim() - 1)), x, c)
+                          for x, c in zip(compact_subtree(tree, acts, r_cap), cold)))
+
+    return res.actions, res.visit_policy, None if warm is None else carry
 
 
 @torch.no_grad()
@@ -180,12 +246,9 @@ def selfplay_rollout(generator, states, net, num_steps: int, config: EnvConfig, 
     collapse toward always-pass; use a search rollout for AZ learning.  This
     is the cheap data-generation baseline.  ``gumbel`` (T, B, A) is the
     sampling noise; ``target_net`` the frozen network of ``value_bootstrap``."""
-
-    def act(t, st):
-        acts, masked = policy_actions(generator, st, net, temperature, pass_min_stones, _row(gumbel, t))
-        return acts, torch.softmax(masked, dim=-1)
-
-    return _window(states, num_steps, config, act, net, value_bootstrap, target_net)
+    return _window(generator, states, num_steps, config, net, _act_policy,
+                   dict(temperature=temperature, pass_min_stones=pass_min_stones), value_bootstrap, target_net,
+                   noise=(gumbel,))
 
 
 @torch.no_grad()
@@ -194,14 +257,9 @@ def selfplay_search_rollout(generator, states, net, num_steps: int, config: EnvC
                             target_net=None, gumbel=None):
     """Self-play driven by the one-ply Gumbel lookahead (``rl.search``): the
     policy targets are the search-improved distributions."""
-    from gymgo_tpu_torch.rl.search import gumbel_oneply
-
-    def act(t, st):
-        res = gumbel_oneply(generator, st, net, num_sampled=num_sampled, c_q=c_q, komi=config.komi,
-                            pass_min_stones=pass_min_stones, gumbel=_row(gumbel, t))
-        return res.actions, res.improved_policy
-
-    return _window(states, num_steps, config, act, net, value_bootstrap, target_net)
+    return _window(generator, states, num_steps, config, net, _act_oneply,
+                   dict(num_sampled=num_sampled, c_q=c_q, pass_min_stones=pass_min_stones), value_bootstrap,
+                   target_net, noise=(gumbel,))
 
 
 @torch.no_grad()
@@ -212,15 +270,10 @@ def selfplay_gumbel_rollout(generator, states, net, num_steps: int, config: EnvC
     completed-Q improved-policy targets (``rl.gumbel_mcts``), a policy
     improvement operator even at small simulation budgets.  ``gumbel``
     (T, B, A) is each move's root noise."""
-    from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
-
-    def act(t, st):
-        res = run_gumbel_mcts(generator, st, net, num_simulations=num_simulations, max_considered=max_considered,
-                              komi=config.komi, pass_min_stones=pass_min_stones, gumbel=_row(gumbel, t),
-                              **gumbel_kw)
-        return res.actions, res.improved_policy
-
-    return _window(states, num_steps, config, act, net, value_bootstrap, target_net)
+    return _window(generator, states, num_steps, config, net, _act_gumbel,
+                   dict(num_simulations=num_simulations, max_considered=max_considered,
+                        pass_min_stones=pass_min_stones, **gumbel_kw),
+                   value_bootstrap, target_net, noise=(gumbel,))
 
 
 @torch.no_grad()
@@ -237,7 +290,7 @@ def selfplay_mcts_rollout(generator, states, net, num_steps: int, config: EnvCon
     ``num_simulations``).  Reuse is dropped for envs whose game ended.  Extra
     ``mcts_kw`` (e.g. ``num_parallel``) go to ``run_mcts``; ``dirichlet`` and
     ``gumbel`` (T, B, A) are each move's root noise and pick noise."""
-    from gymgo_tpu_torch.rl.mcts import compact_subtree, empty_tree, played_child_stats, run_mcts
+    from gymgo_tpu_torch.rl.mcts import empty_tree
 
     mode = {False: "off", True: "root"}.get(tree_reuse, tree_reuse)
     if mode not in ("off", "root", "subtree"):
@@ -247,35 +300,14 @@ def selfplay_mcts_rollout(generator, states, net, num_steps: int, config: EnvCon
     r_cap = reuse_cap if reuse_cap is not None else num_simulations
     if mode == "subtree":
         warm = empty_tree(b, r_cap, a_size, states.shape[1:], states.dtype, device=dev)
-    else:
+    elif mode == "root":
         warm = (torch.zeros((b, a_size), dtype=torch.int32, device=dev),
                 torch.zeros((b, a_size), dtype=torch.float32, device=dev))
-    last_tree = None
-
-    def act(t, st):
-        nonlocal last_tree
-        warm_kw = {"root": {"warm_root": warm}, "subtree": {"warm_tree": warm}}.get(mode, {})
-        res, last_tree = run_mcts(generator, st, net, num_simulations=num_simulations, komi=config.komi,
-                                  return_tree=True, pass_min_stones=pass_min_stones,
-                                  dirichlet=_row(dirichlet, t), gumbel=_row(gumbel, t), **warm_kw, **mcts_kw)
-        return res.actions, res.visit_policy
-
-    def after_step(acts, live, new_st):
-        # invalid when this root was already done (auto-reset replaced the
-        # board the tree stepped) or the game just ended
-        nonlocal warm
-        keep = live & ~_state.game_ended(new_st)
-        if mode == "root":
-            wv, ww = played_child_stats(last_tree, acts)
-            warm = (torch.where(keep[:, None], wv, 0), torch.where(keep[:, None], ww, 0.0))
-        else:
-            wt = compact_subtree(last_tree, acts, r_cap)
-            cold = empty_tree(b, r_cap, a_size, states.shape[1:], states.dtype, device=dev)
-            warm = type(wt)(*(torch.where(keep.view((-1,) + (1,) * (x.dim() - 1)), x, c)
-                              for x, c in zip(wt, cold)))
-
-    return _window(states, num_steps, config, act, net, value_bootstrap, target_net,
-                   after_step=None if mode == "off" else after_step)
+    else:
+        warm = None
+    return _window(generator, states, num_steps, config, net, _act_puct,
+                   dict(num_simulations=num_simulations, pass_min_stones=pass_min_stones, **mcts_kw),
+                   value_bootstrap, target_net, noise=(dirichlet, gumbel), warm=warm)
 
 
 def _symmetry_sources(n: int, device) -> torch.Tensor:

@@ -67,42 +67,57 @@ def forced_root_edge(forced_act: torch.Tensor, child: torch.Tensor, node_done: t
     return forced_nxt, _child_is_open(forced_nxt, node_done)
 
 
-def walk_paths(best_act, nxt_tab, keep_tab, max_depth: int, forced_root=None):
+def walk_paths(best_act, nxt_tab, keep_tab, max_depth: int, forced_root=None, depth_bound: int | None = None):
     """Descend every env's tree from node 0 along the tables of ``node_tables``.
 
-    Lanes stop on their own: an open lane's depth equals the iteration index,
-    and a closed lane re-writes the -1 its path was filled with.  The loop ends
-    at the deepest path: "is any lane open" is read on the host before every
-    depth (one sync each), which on the card costs less than the launches of
-    the depths no lane reaches.
+    The JAX walk is a ``lax.while_loop`` whose condition (a lane is open and
+    the depth is below ``max_depth``) is read on the device.  This one runs a
+    fixed ``depth_bound`` iterations and reads nothing on the host, so a CUDA
+    graph can hold it: an open lane's depth equals the iteration index, and a
+    closed lane re-writes the -1 its path was filled with, so the iterations
+    past the deepest path change no output.
+
+    ``depth_bound`` (static, ``max_depth`` unless given) must be at least the
+    longest path.  A child's slot always exceeds its parent's (each
+    expansion takes the next free slot, and ``rl.mcts.compact_subtree`` keeps
+    the old order), so a path visits strictly increasing slots and is no
+    longer than the number of slots filled so far: a caller passes that
+    count (``sim + 1`` in Gumbel search, ``R + wave * K`` in PUCT).
 
     Args:
-      max_depth: bound of the walk and width of the path arrays.
+      max_depth: width of the path arrays.
       forced_root: optional ``(act, nxt, keep)``, each (B,), overriding the
         depth-0 edge (from ``forced_root_edge``).
+      depth_bound: the iterations run, at most ``max_depth``.
 
     Returns:
       depth: int32 (B,) path lengths (>= 1).
       path_n: int32 (B, max_depth) node indices (-1 past the path).
       path_a: int32 (B, max_depth) action indices (-1 past the path).
     """
+    bound = max_depth if depth_bound is None else depth_bound
+    if not 1 <= bound <= max_depth:
+        raise ValueError(f"depth_bound {depth_bound} must lie in [1, max_depth={max_depth}]")
     b = best_act.shape[0]
     dev = best_act.device
+    # one gather a depth: the argmax action and, where the walk goes on, the
+    # child (-1 where it stops)
+    tab = torch.stack((best_act, torch.where(keep_tab, nxt_tab, -1)), dim=-1)
     node = torch.zeros((b,), dtype=torch.int64, device=dev)
-    depth_b = torch.zeros((b,), dtype=torch.int32, device=dev)
-    path_n = torch.full((b, max_depth), -1, dtype=torch.int32, device=dev)
-    path_a = torch.full((b, max_depth), -1, dtype=torch.int32, device=dev)
     open_ = torch.ones((b,), dtype=torch.bool, device=dev)
-    for depth in range(max_depth):
-        if not bool(open_.any()):
-            break
+    cols_n, cols_a = [], []
+    for depth in range(bound):
         if depth == 0 and forced_root is not None:
             act, nxt, keep = forced_root
+            nxt = torch.where(keep, nxt, -1)
         else:
-            act, nxt, keep = (t.gather(1, node[:, None])[:, 0] for t in (best_act, nxt_tab, keep_tab))
-        path_n[:, depth] = torch.where(open_, node, -1)
-        path_a[:, depth] = torch.where(open_, act, -1)
-        depth_b += open_
-        node = torch.where(open_ & (nxt >= 0), nxt, node)
-        open_ = open_ & keep
-    return depth_b, path_n, path_a
+            act, nxt = tab.gather(1, node[:, None, None].expand(b, 1, 2))[:, 0].unbind(1)
+        cols_n.append(torch.where(open_, node, -1))
+        cols_a.append(torch.where(open_, act, -1))
+        open_ = open_ & (nxt >= 0)
+        node = torch.where(open_, nxt, node)
+    path_n = torch.full((b, max_depth), -1, dtype=torch.int32, device=dev)
+    path_a = torch.full((b, max_depth), -1, dtype=torch.int32, device=dev)
+    path_n[:, :bound] = torch.stack(cols_n, dim=1)
+    path_a[:, :bound] = torch.stack(cols_a, dim=1)
+    return (path_n >= 0).sum(dim=1, dtype=torch.int32), path_n, path_a

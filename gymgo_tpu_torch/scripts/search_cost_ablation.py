@@ -14,7 +14,10 @@ which waits for the device.  Eager PyTorch has no ``fori_loop``: every
 iteration is launched from the host, kernel by kernel, so "per simulation"
 here is the host's dispatch of one iteration's launches plus whatever
 device time they take beyond it, which is what a simulation of the port's
-search pays.  The time of an empty loop of the same trip count that ends on
+search pays when it runs eagerly (``run_gumbel_mcts.fn``; on the card the
+package replays a whole search as one CUDA graph, which ``chip_smoke.py``
+phase 26 times).  The selection walk runs the ``i + 1`` depths the search's
+walk runs at simulation ``i``.  The time of an empty loop of the same trip count that ends on
 the same fetch (the call's fixed cost, the JAX script's null loop) is
 subtracted.  Each component is the best of 5 runs after one warm-up run, by
 the host's clock and, on the card, by CUDA events around the loop; on the
@@ -169,9 +172,11 @@ def main(argv=None) -> int:
 
     def select_loop():
         scores, acc = scores0.clone(), torch.zeros((), device=dev)
-        for _ in range(sims):
+        for i in range(sims):
             scores[:, 0, 0] = acc % 1.0
-            depth, _path_n, _path_a = _treewalk.walk_paths(*_treewalk.node_tables(scores, child, node_done), m)
+            # the iterations the search's walk runs at simulation i
+            depth, _path_n, _path_a = _treewalk.walk_paths(*_treewalk.node_tables(scores, child, node_done), m,
+                                                           depth_bound=i + 1)
             acc = acc + depth.sum().to(torch.float32) * 1e-6
         return acc.item()
 

@@ -1,16 +1,18 @@
 """Depth of the search's selection walk against the batch size (counterpart of
 the JAX package's ``scripts/walk_depth_study.py``).
 
-The selection walk (``rl.treewalk.walk_paths``) runs one iteration per depth
-until the deepest path of the batch ends, so its trip count is the batch-max
-depth of the simulation: per-env depths follow one distribution, but their
-maximum over B grows about as log B, and the walk's cost per env grows with
-the batch though every other stage is linear.  This measures the
-distribution directly, per simulation: the per-env mean, p99 and batch-max
-depth at several batch sizes on the same mid-game boards (a 96-step uniform
-rollout), by wrapping ``walk_paths`` (``run_gumbel_mcts`` looks it up on the
-module at every simulation) and recording each call's ``depth_b``.  Depths
-are a property of the search, not of the device.
+The JAX package's selection walk (``rl.treewalk.walk_paths``) runs one
+iteration per depth until the deepest path of the batch ends, so its trip
+count is the batch-max depth of the simulation: per-env depths follow one
+distribution, but their maximum over B grows about as log B, and the walk's
+cost per env grows with the batch though every other stage is linear (the
+port's walk runs a fixed ``sim + 1`` iterations at simulation ``sim``, which
+no path exceeds).  This measures the distribution directly, per simulation:
+the per-env mean, p99 and batch-max depth at several batch sizes on the same
+mid-game boards (a 96-step uniform rollout), by wrapping ``walk_paths`` (the
+eager search, ``run_gumbel_mcts.fn``, looks it up on the module at every
+simulation) and recording each call's ``depth_b``.  Depths are a property of
+the search, not of the device.
 
     python -m gymgo_tpu_torch.scripts.walk_depth_study [--board 13 --sims 32
         --gumbel-m 16 --channels 8 --blocks 1 --batches 64,256,1024
@@ -56,13 +58,14 @@ def recording_walk():
 
 
 def search_depths(boards, net, num_simulations, max_considered, generator=None, gumbel=None):
-    """One ``run_gumbel_mcts`` over ``boards``: the selection walk's per-env
-    depths, one int numpy array (B,) per simulation."""
+    """One eager ``run_gumbel_mcts`` over ``boards`` (a captured graph would
+    record its capture's depths only): the selection walk's per-env depths,
+    one int numpy array (B,) per simulation."""
     from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
 
     with recording_walk() as log:
-        run_gumbel_mcts(generator, boards, net, num_simulations=num_simulations,
-                        max_considered=max_considered, gumbel=gumbel)
+        run_gumbel_mcts.fn(generator, boards, net, num_simulations=num_simulations,
+                           max_considered=max_considered, gumbel=gumbel)
     return [d.cpu().numpy() for d in log]
 
 

@@ -199,6 +199,7 @@ class Trainer:
         self.target = acting_copy(self.net)
         self.meter = Meter()
         self._learn = None  # the compiled learner step (``learn``)
+        self._eval_policy = None  # the match policy of ``evaluate``, made at its first call
         if (a.checkpoint_every or a.snapshot_every) and not a.checkpoint:
             log("warning: --checkpoint-every/--snapshot-every have no effect without --checkpoint", flush=True)
         if a.resume:
@@ -320,7 +321,16 @@ class Trainer:
         return metrics
 
     def evaluate(self):
-        """A match of the acting net against the uniform sampler."""
+        """A match of the acting net against the uniform sampler.  The policy
+        is built once, so that every evaluation replays the match's graphs
+        (``rl.evaluate.play_match`` keys them by the policy)."""
+        if self._eval_policy is None:
+            self._eval_policy = self._make_eval_policy()
+        a = self.args
+        return play_match(self.generator, self._eval_policy, uniform_random_actions, self.env_cfg,
+                          num_games=a.eval_games, max_steps=3 * a.board * a.board, device=self.device)
+
+    def _make_eval_policy(self):
         a = self.args
         # with the pass-to-win wrapper, suppress pass INSIDE the search so its
         # own ranking picks the best board move; the wrapper then only adds
@@ -333,8 +343,7 @@ class Trainer:
             policy = make_search_policy(self.acting, num_sampled=8, komi=a.komi, pass_min_stones=no_pass)
         if not a.eval_raw_pass:
             policy = with_pass_to_win(policy, komi=a.komi)
-        return play_match(self.generator, policy, uniform_random_actions, self.env_cfg, num_games=a.eval_games,
-                          max_steps=3 * a.board * a.board, device=self.device)
+        return policy
 
     def save(self, it_done: int, main: bool = True) -> None:
         a = self.args

@@ -15,16 +15,27 @@ kernels' plain versions serve the CPU.
 The key holds the shapes, dtypes and devices of the tensor arguments, the
 values of the static arguments, the device of each ``torch.Generator``
 argument, the flood route (``core.flood.flood_route``), the ``GYMGO_ABLATE``
-tokens and the ``GYMGO_BITPACK_FIXED_ONLY`` prefix, so a switch never replays
-a graph captured under another setting.  Every other argument is a tree
-(tuples, named tuples, lists, dicts) of tensors, generators and ``None``.
+tokens, the ``GYMGO_BITPACK_FIXED_ONLY`` prefix and the value of every
+function a module registered with ``register_key_part`` (the Gumbel tree
+layout, ``rl.gumbel_mcts.pack``), so a switch never replays a graph captured
+under another setting.  Every other argument is a tree (tuples, named tuples,
+lists, dicts) of tensors, generators and ``None``.
+
+Nested calls: a compiled function called while a graph is being captured
+(a search inside a captured self-play move) runs its function inline, so its
+kernels join the outer graph; so does one called during the eager first run
+of an outer key on the side stream, which would otherwise capture a graph
+of its own that nothing replays.  Only the outermost compiled call captures
+and replays.  Inside ``with eager():`` every compiled call runs its function
+as it is: a path's eager form, to compare with or time against its graphs.
 
 What a graph may hold:
 
 * No host sync: a sync inside the capture makes the capture fail, and a failed
   capture raises; nothing falls back to eager running on the card.  The
   minmax route's claim flood and the scoring of boards the bundle word cannot
-  hold (N*N > 511) sync, so their callers stay eager (``capturable``).
+  hold (N*N > 511) sync, so their callers stay eager (``capturable``, which
+  ``compiled(..., when=)`` reads per call).
 * Draws from a ``torch.Generator`` argument: the graph draws from a
   generator of its own, registered with it
   (``CUDAGraph.register_generator_state``), which each replay sets to the
@@ -46,6 +57,7 @@ again on every replay.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import inspect
 import time
@@ -57,7 +69,12 @@ from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.ops import cuda_lib
 
-__all__ = ["compiled", "Compiled", "CapturedGraph", "capturable"]
+__all__ = ["compiled", "Compiled", "CapturedGraph", "capturable", "capturable_states", "register_key_part", "eager"]
+
+# functions of no argument whose values join every key (``register_key_part``)
+_KEY_PARTS: list = []
+# > 0 inside ``eager()`` (an outer key's eager first run among them): compiled calls run inline
+_inline = 0
 
 
 def capturable(board_size: int) -> bool:
@@ -66,6 +83,38 @@ def capturable(board_size: int) -> bool:
     route's claim flood checks its convergence on the host) and boards whose
     cell codes the bundle word holds."""
     return _flood.flood_route in _flood.BUNDLE_ROUTES and board_size * board_size <= _flood.MAX_BUNDLE_CELLS
+
+
+def capturable_states(arguments: dict) -> bool:
+    """The ``when`` of a compiled function of ``states``: ``capturable`` of
+    their board size."""
+    return capturable(arguments["states"].shape[-1])
+
+
+def register_key_part(part: Callable[[], object]) -> None:
+    """Add ``part()``, a hashable value of a process-wide switch that a
+    compiled function reads (a tree layout), to the key of every later
+    call, so a graph captured under one setting never replays under
+    another."""
+    _KEY_PARTS.append(part)
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block every compiled call runs its function as it is (the
+    eager form of a path); an outer key's eager first run is such a block."""
+    global _inline
+    _inline += 1
+    try:
+        yield
+    finally:
+        _inline -= 1
+
+
+def _nested() -> bool:
+    """True inside ``eager()`` or a capture: a compiled call there runs its
+    function inline."""
+    return _inline > 0 or (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())
 
 
 def _map(fn, tree):
@@ -174,7 +223,7 @@ def _capture(fn, call: _Call, device) -> tuple:
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
-    with torch.cuda.stream(side):
+    with eager(), torch.cuda.stream(side):
         out = fn(*call.bound.args, **call.bound.kwargs)
     current.wait_stream(side)
     # the result was made on the side stream and is used on the current one
@@ -219,10 +268,13 @@ def _capture(fn, call: _Call, device) -> tuple:
 
 class Compiled:
     """``fn`` with its CUDA graphs, one per key (see the module docstring).
-    ``graphs`` maps each key to its ``CapturedGraph``."""
+    ``graphs`` maps each key to its ``CapturedGraph``; ``when``, if given,
+    maps the bound arguments (a dict by name) to whether a call on the card
+    may be captured, and where it says no ``fn`` runs as it is."""
 
-    def __init__(self, fn: Callable, static_argnames=()):
+    def __init__(self, fn: Callable, static_argnames=(), when: Callable[[dict], bool] | None = None):
         self.fn = fn
+        self.when = when
         self.signature = inspect.signature(fn)
         self.static_argnames = frozenset(static_argnames)
         unknown = self.static_argnames.difference(self.signature.parameters)
@@ -243,13 +295,14 @@ class Compiled:
             else:
                 dynamic.append(name)
                 parts.append((name, _spec(value, leaves)))
-        key = (tuple(parts), _flood.flood_route, tuple(sorted(_step.ablate)), _flood.fixed_only_prefix)
+        key = (tuple(parts), _flood.flood_route, tuple(sorted(_step.ablate)), _flood.fixed_only_prefix,
+               tuple(part() for part in _KEY_PARTS))
         return _Call(bound, tuple(dynamic), leaves, key)
 
     def __call__(self, *args, **kwargs):
         call = self._call(args, kwargs)
         device = _graph_device(call.leaves)
-        if device is None:
+        if device is None or _nested() or (self.when is not None and not self.when(call.bound.arguments)):
             return self.fn(*args, **kwargs)
         graph = self.graphs.get(call.key)
         if graph is None:
@@ -258,7 +311,8 @@ class Compiled:
         return graph.replay(call.leaves)
 
 
-def compiled(fn: Callable, static_argnames=()) -> Compiled:
+def compiled(fn: Callable, static_argnames=(), when: Callable[[dict], bool] | None = None) -> Compiled:
     """``fn`` captured into a CUDA graph per key and replayed (``jax.jit``'s
-    counterpart; the module docstring says what a graph may hold)."""
-    return Compiled(fn, static_argnames)
+    counterpart; the module docstring says what a graph may hold).  ``when``
+    keeps the calls it refuses eager (a path that syncs, ``capturable``)."""
+    return Compiled(fn, static_argnames, when)

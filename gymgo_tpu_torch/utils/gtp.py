@@ -525,7 +525,7 @@ class GumbelMover:
     def __call__(self, state):
         from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
 
-        gumbel = None if self._gumbel_source is None else self._gumbel_source()
+        gumbel = None if self._gumbel_source is None else self._gumbel_source().to(self._device)
         res = run_gumbel_mcts(self._generator, _batch_of_one(state, self._device), self._net,
                               num_simulations=self._simulations, komi=self._komi, gumbel=gumbel)
         return int(res.actions[0])
@@ -545,12 +545,19 @@ def make_net_genmove(checkpoint: str, board_size: int, channels: int,
     port's trainer checkpoint (``convert.load_aznet_checkpoint``); a net of
     another size, width or depth raises ``ValueError``.  ``dtype`` is the
     net's compute type, bfloat16 unless given (the tests ask for float32).
-    ``gumbel_source`` feeds the Gumbel mover's root noise (``GumbelMover``)."""
+    ``gumbel_source`` feeds the Gumbel mover's root noise (``GumbelMover``).
+
+    On the card each mover replays CUDA graphs, as JAX jits them: the Gumbel
+    and PUCT movers through ``run_gumbel_mcts``, ``run_mcts`` and
+    ``compact_subtree`` (their shapes are the same at every move, the PUCT
+    mover's empty tree included), the greedy one its forward and masked
+    argmax.  The minmax route and boards over 22x22 run eagerly."""
     import torch
 
     from gymgo_tpu_torch.convert import load_aznet_checkpoint
     from gymgo_tpu_torch.core import actions as _actions
     from gymgo_tpu_torch.core import transform as _transform
+    from gymgo_tpu_torch.utils.graphs import capturable_states, compiled
 
     if search not in ("gumbel", "puct"):
         raise ValueError(f"unknown search {search!r}")
@@ -564,11 +571,16 @@ def make_net_genmove(checkpoint: str, board_size: int, channels: int,
         return GumbelMover(net, simulations, komi, seed=seed, gumbel_source=gumbel_source)
 
     @torch.no_grad()
-    def pick(state):
-        states = _batch_of_one(state, dev)
+    def masked_argmax(states):
         logits, _ = net(_transform.batch_canonical_form(states))
         valid = _actions.batch_valid_moves(states) > 0
-        return int(torch.where(valid, logits, -torch.inf).argmax(dim=-1)[0])
+        return torch.where(valid, logits, -torch.inf).argmax(dim=-1)
+
+    # a CUDA graph on the card, as JAX jits its greedy mover
+    greedy = compiled(masked_argmax, when=capturable_states)
+
+    def pick(state):
+        return int(greedy(_batch_of_one(state, dev))[0])
 
     return pick
 

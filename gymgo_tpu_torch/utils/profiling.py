@@ -1,19 +1,21 @@
 """Timing helpers (counterpart of ``gymgo_tpu.utils.profiling``).
 
 ``force`` waits for a result by fetching a scalar checksum; ``time_fn`` times
-a call with CUDA events on the card (host clock on the CPU); ``Meter`` keeps a
-rolling env-steps/s.  ``jax.profiler.trace`` has no counterpart:
-``torch.profiler`` serves.
+a call with CUDA events on the card (host clock on the CPU); ``trace`` writes
+a ``torch.profiler`` Chrome trace of a block (``jax.profiler.trace``'s
+counterpart); ``Meter`` keeps a rolling env-steps/s.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable
 
 import torch
 
-__all__ = ["force", "time_fn", "Meter"]
+__all__ = ["force", "time_fn", "trace", "Meter"]
 
 
 def _first_tensor(tree):
@@ -58,6 +60,27 @@ def time_fn(fn: Callable, *args, reps: int = 5, warmup: int = 1, device=None, **
             force(fn(*args, **kw))
             best = min(best, time.perf_counter() - t0)
     return best
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` (the host's operators, and
+    the card's kernels when CUDA is available) and write its Chrome trace,
+    ``trace.json`` in ``log_dir`` (view it in Perfetto or chrome://tracing).
+    Yields ``log_dir``; the trace is written when the block ends, also when
+    it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    with prof:
+        try:
+            yield log_dir
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class Meter:

@@ -3,14 +3,12 @@
     python3 scripts/torch_search_profile.py [--batch 256] [--sims 32]
 
 Loads the committed 19x19 128x6 net, takes B mid-game states from a 19x19
-auto-reset rollout on the card, and measures ``run_gumbel_mcts`` (32
-simulations, 16 considered, bfloat16 net) in several variants, in turns
-(A B C C B A) inside one process:
+auto-reset rollout on the card, and measures the eager
+``run_gumbel_mcts.fn`` (32 simulations, 16 considered, bfloat16 net; the
+compiled search is timed by ``chip_smoke.py`` phase 26) in two variants, in
+turns (A B B A) inside one process:
 
-  built       the search as the package runs it;
-  full-depth  the selection walk without its per-depth host check: all
-              ``max_depth`` iterations, no sync (this script's own copy of the
-              loop, ``full_depth_walk``);
+  built       the search as the package runs it eagerly;
   old-flood   the search with the host-synced capture flood put back into every
               expansion: the ``flood_or`` call that ``step_planes`` made before
               it classified the board before the move with the kernel on CUDA
@@ -49,34 +47,11 @@ from gymgo_tpu_torch.core import step as tstep  # noqa: E402
 from gymgo_tpu_torch.core.actions import uniform_random_actions  # noqa: E402
 from gymgo_tpu_torch.core.state import batch_init_state  # noqa: E402
 from gymgo_tpu_torch.env.batch_env import rollout  # noqa: E402
-from gymgo_tpu_torch.rl import gumbel_mcts, treewalk  # noqa: E402
+from gymgo_tpu_torch.rl import gumbel_mcts  # noqa: E402
 
 CONSIDERED = 16
-# the package's own, kept while a variant stands in their place
+# the package's own, kept while a variant stands in its place
 STEP_STATES = tstep.step_states
-WALK_PATHS = treewalk.walk_paths
-
-
-def full_depth_walk(best_act, nxt_tab, keep_tab, max_depth, forced_root=None):
-    """``treewalk.walk_paths`` without its host check: every one of the
-    ``max_depth`` iterations runs, closed lanes re-write their -1."""
-    b, dev = best_act.shape[0], best_act.device
-    node = torch.zeros((b,), dtype=torch.int64, device=dev)
-    depth_b = torch.zeros((b,), dtype=torch.int32, device=dev)
-    path_n = torch.full((b, max_depth), -1, dtype=torch.int32, device=dev)
-    path_a = torch.full((b, max_depth), -1, dtype=torch.int32, device=dev)
-    open_ = torch.ones((b,), dtype=torch.bool, device=dev)
-    for depth in range(max_depth):
-        if depth == 0 and forced_root is not None:
-            act, nxt, keep = forced_root
-        else:
-            act, nxt, keep = (t.gather(1, node[:, None])[:, 0] for t in (best_act, nxt_tab, keep_tab))
-        path_n[:, depth] = torch.where(open_, node, -1)
-        path_a[:, depth] = torch.where(open_, act, -1)
-        depth_b += open_
-        node = torch.where(open_ & (nxt >= 0), nxt, node)
-        open_ = open_ & keep
-    return depth_b, path_n, path_a
 
 
 def old_capture_flood_step(states, actions):
@@ -107,21 +82,21 @@ def areas_by_flood(states):
 
 
 class Variant:
-    def __init__(self, name, walk=WALK_PATHS, step=STEP_STATES):
-        self.name, self.walk, self.step = name, walk, step
+    def __init__(self, name, step=STEP_STATES):
+        self.name, self.step = name, step
         self.ms = []
 
     def search(self, roots, net, sims, seed=0):
-        """One search with this variant's walk and step in place of the
+        """One eager search with this variant's step in place of the
         package's, put back afterwards."""
         gen = torch.Generator(device=roots.device).manual_seed(seed)
-        saved = treewalk.walk_paths, tstep.step_states
-        treewalk.walk_paths, tstep.step_states = self.walk, self.step
+        saved = tstep.step_states
+        tstep.step_states = self.step
         try:
-            return gumbel_mcts.run_gumbel_mcts(gen, roots, net, num_simulations=sims,
-                                               max_considered=CONSIDERED)
+            return gumbel_mcts.run_gumbel_mcts.fn(gen, roots, net, num_simulations=sims,
+                                                  max_considered=CONSIDERED)
         finally:
-            treewalk.walk_paths, tstep.step_states = saved
+            tstep.step_states = saved
 
 
 def wall_ms(fn, reps=1):
@@ -156,8 +131,7 @@ def main(argv=None) -> int:
     net16 = load_aznet_npz(chip_smoke.NET_19, device=dev, dtype=torch.bfloat16)
     net32 = load_aznet_npz(chip_smoke.NET_19, device=dev, dtype=torch.float32)
 
-    variants = [Variant("built"), Variant("full-depth", walk=full_depth_walk),
-                Variant("old-flood", step=old_capture_flood_step)]
+    variants = [Variant("built"), Variant("old-flood", step=old_capture_flood_step)]
     reference = None
     for v in variants:
         res = v.search(roots, net16, SIMS)  # warm up, and hold the variants to one result

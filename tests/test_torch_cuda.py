@@ -2,7 +2,8 @@
 rollout of its route, and on bad input; the stateless step, the area score,
 the net and the search against the CPU plain path; the step's ablation
 switches and ``measure_convergence``'s kernel check; the compiled forms
-(CUDA graphs) against their eager functions.  Imports no JAX, so it runs on a machine without
+(CUDA graphs) against their eager functions, the search, the self-play move
+and the match ply among them.  Imports no JAX, so it runs on a machine without
 it (``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``); every
 test skips where there is no card.
 """
@@ -24,6 +25,7 @@ from gymgo_tpu_torch.core.state import batch_init_state
 from gymgo_tpu_torch.env.batch_env import rollout
 from gymgo_tpu_torch.ops import bundle_flood as tbundle
 from gymgo_tpu_torch.ops import minmax_flood as tminmax
+from gymgo_tpu_torch.utils import graphs
 from torch_boards import (adversarial_boards, component_boards, midgame_states, random_boards,
                           states_on_boards)
 
@@ -776,3 +778,116 @@ def test_compiled_gogame_functions_equal_eager_on_the_card(cuda_device):
         on_card = gogame.next_state(state, action, device=cuda_device)
         assert np.array_equal(on_card, gogame.next_state(state, action, device="cpu"))
         state = on_card
+
+
+def _search_setup(device, b, n=9):
+    """The 9x9 net in bfloat16, as GTP and the eval tools run it, and ``b``
+    mid-game boards."""
+    from gymgo_tpu_torch.convert import load_aznet_npz
+
+    net = load_aznet_npz(_ARTIFACTS / "az9_r5_iter100_params.npz", device=device, dtype=torch.bfloat16)
+    return net, _midgame(device, n, b, 40)
+
+
+def _search(kind, gen, states, net, fn=None):
+    """A Gumbel or a PUCT search (with a warm tree of 12 slots), compiled, or
+    eager with ``fn="eager"``."""
+    from gymgo_tpu_torch.rl import gumbel_mcts, mcts
+
+    if kind == "gumbel":
+        run = gumbel_mcts.run_gumbel_mcts
+        kw = dict(num_simulations=16, max_considered=8)
+    else:
+        run = mcts.run_mcts
+        warm = mcts.empty_tree(states.shape[0], 12, 82, states.shape[1:], states.dtype, device=states.device)
+        kw = dict(num_simulations=16, num_parallel=2, warm_tree=warm, return_tree=True)
+    return (run.fn if fn == "eager" else run)(gen, states, net, **kw)
+
+
+def _flat(tree):
+    return [y for x in tree for y in (_flat(x) if isinstance(x, tuple) else [x])]
+
+
+@pytest.mark.parametrize("kind", ["gumbel", "puct"])
+def test_compiled_search_equals_eager_over_replays_and_a_batch_change(kind, cuda_device):
+    from gymgo_tpu_torch.rl import gumbel_mcts, mcts
+
+    compiled_fn = gumbel_mcts.run_gumbel_mcts if kind == "gumbel" else mcts.run_mcts
+    net, states = _search_setup(cuda_device, 48)
+    gc, ge = (torch.Generator(device=cuda_device).manual_seed(21) for _ in range(2))
+    per_search = 2 * 16 if kind == "gumbel" else 2 * 16 // 2  # a step (2 launches) a simulation / a wave
+    for rows in (48, 48, 48, 20, 20):  # a first call, two replays; then a new batch
+        launches = tbundle.BUNDLE_FLOOD.launches
+        got = _search(kind, gc, states[:rows], net)
+        assert tbundle.BUNDLE_FLOOD.launches - launches == per_search
+        want = _search(kind, ge, states[:rows], net, fn="eager")
+        assert all(torch.equal(x, y) for x, y in zip(_flat(got), _flat(want)))
+        assert torch.equal(gc.get_state(), ge.get_state())
+    assert sorted(g.replays for k, g in compiled_fn.graphs.items() if _holds(k, net)) == [1, 2]
+
+
+def _holds(key, net):
+    return any(part == ("net", net) for part in key[0])
+
+
+def test_replayed_search_and_move_make_no_host_sync(cuda_device):
+    from gymgo_tpu_torch.rl import selfplay
+
+    net, states = _search_setup(cuda_device, 32)
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    cfg = EnvConfig(board_size=9, batch_size=32, auto_reset=True)
+    for kind in ("gumbel", "puct"):
+        _search(kind, g, states, net)  # eager first run, then the capture
+        with _no_host_sync():
+            _search(kind, g, states, net)
+    kw = dict(num_simulations=8, max_considered=4)
+    selfplay.selfplay_gumbel_rollout(g, states, net, 1, cfg, **kw)  # the move's capture
+    launches = tbundle.BUNDLE_FLOOD.launches
+    with _no_host_sync():
+        _, rows, _ = selfplay._move(g, states, (None,), None, net=net, config=cfg, act=selfplay._act_gumbel,
+                                    settings=tuple(sorted(dict(pass_min_stones=0, **kw).items())))
+    assert tbundle.BUNDLE_FLOOD.launches - launches == 2 * 8 + 2  # the search's steps and the move's
+    assert not rows[6].any()  # no invalid action
+
+
+def test_a_gumbel_layout_switch_captures_a_new_graph(cuda_device):
+    from gymgo_tpu_torch.rl import gumbel_mcts
+
+    net, states = _search_setup(cuda_device, 16)
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    before_graphs = len(gumbel_mcts.run_gumbel_mcts.graphs)
+    _search("gumbel", g, states, net)
+    before = gumbel_mcts.set_gumbel_pack({"i16", "logp"})
+    try:
+        got = _search("gumbel", torch.Generator(device=cuda_device).manual_seed(24), states, net)
+        want = _search("gumbel", torch.Generator(device=cuda_device).manual_seed(24), states, net, fn="eager")
+    finally:
+        gumbel_mcts.set_gumbel_pack(before)
+    assert len(gumbel_mcts.run_gumbel_mcts.graphs) == before_graphs + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_compiled_window_and_match_equal_eager(cuda_device):
+    from gymgo_tpu_torch.core.actions import uniform_random_actions
+    from gymgo_tpu_torch.rl import evaluate, selfplay
+    from gymgo_tpu_torch.rl.gumbel_mcts import make_gumbel_mcts_policy
+
+    net, states = _search_setup(cuda_device, 24)
+    cfg = EnvConfig(board_size=9, batch_size=24, auto_reset=True)
+    kw = dict(num_simulations=8, tree_reuse="subtree", reuse_cap=6)
+    gc, ge = (torch.Generator(device=cuda_device).manual_seed(25) for _ in range(2))
+    fc, bc = selfplay.selfplay_mcts_rollout(gc, states, net, 3, cfg, **kw)
+    with graphs.eager():
+        fe, be = selfplay.selfplay_mcts_rollout(ge, states, net, 3, cfg, **kw)
+    assert torch.equal(fc, fe) and all(torch.equal(x, y) for x, y in zip(bc, be))
+    policy = evaluate.with_pass_to_win(make_gumbel_mcts_policy(net, num_simulations=8, max_considered=4))
+    results = []
+    for context in (contextlib.nullcontext, graphs.eager):
+        with context():
+            results.append(evaluate.play_match(torch.Generator(device=cuda_device).manual_seed(26), policy,
+                                               uniform_random_actions, EnvConfig(board_size=9), num_games=8,
+                                               max_steps=30, opening_moves=2, with_states=True,
+                                               device=cuda_device))
+    (rc, sc), (re, se) = results
+    assert torch.equal(sc, se) and all(torch.equal(x, y) for x, y in zip(rc, re))
+    assert any(g.replays for g in evaluate._ply.graphs.values())
