@@ -7,8 +7,8 @@ Phases 3-7 run the default route (the bundle flood, ``GYMGO_FLOOD=bitpack``),
 phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
 
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: nvcc builds both flood kernels from ``gymgo_tpu_torch/csrc``, in
-     parallel, and prints each one's ptxas line;
+  2. build: nvcc builds the three flood kernels (bundle, min/max, claim) from
+     ``gymgo_tpu_torch/csrc``, in parallel, and prints each one's ptxas line;
   3. kernel vs plain: the bundle kernel's int32 word equals the plain PyTorch
      version's bit for bit, on random boards at N = 5, 9, 19, 22, on serpentine,
      staircase, spiral, comb, one-colour, empty and checkerboard boards, on
@@ -18,7 +18,7 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      uniform sampler: a 768-step warmup, then 5 timed windows of 64 steps, each
      ending on a scalar checksum fetch; the kernel's launch count must grow by
      exactly one per step plus one seeding call per rollout, and the minmax
-     kernel's must stay 0;
+     and claim kernels' must stay 0;
   5. replay: a 19x19, B = 256, 200-step rollout on the card, from steady-state
      boards of phase 4, is replayed with its actions on the CPU plain path;
      states, rewards and dones must agree;
@@ -32,9 +32,9 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      boards and odd batches of phase 3, and on the steady-state boards of
      phase 4;
   9. minmax route: ``rollout`` as in phase 4, from phase 4's final states, 5
-     timed windows of 64 steps; the minmax kernel's launch count must grow by
-     exactly one per step plus one per rollout call, the bundle kernel's not
-     at all;
+     timed windows of 64 steps (eager); the minmax kernel's launch count must
+     grow by exactly one per step plus one per rollout call, the claim
+     kernel's by one per step, the bundle kernel's not at all;
  10. route equivalence: phase 9's first window replayed with its actions on
      the default route on the card, and a B = 256, 200-step minmax-route
      rollout replayed on the CPU plain path; states, rewards and dones must
@@ -214,18 +214,36 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      window (envs 512, 8 moves) compiled (capturing, then replayed) equal to
      the eager one row for row, seconds of each; (d) a 9x9 match of 16
      games, 4 opening moves, cap 60, tallies and final states equal; (e) the
-     19x19 Gumbel ``genmove`` at B = 1, ms and busy share of both forms.
+     19x19 Gumbel ``genmove`` at B = 1, ms and busy share of both forms;
+ 27. the minmax route compiled (its claim flood a hand kernel with no host
+     sync): (a) the claim kernel's uint8 word equal to its plain version's
+     on every cell, on random boards at N = 5, 9, 19, 22, 23, 25, 32, the
+     shaped boards at 19, 22, 25, 32, the odd batches and phase 4's
+     steady-state boards, then timed (CUDA events) beside its byte bound and
+     the plain version's time; (b) ``BatchGoEnv.rollout``'s compiled 64-step
+     window at 19x19 B = 12288 on the minmax route against its eager form
+     (``utils.graphs.eager``) from the same seed, bit for bit over the first
+     call and two replays, 65 min/max, 64 claim and 0 bundle launches a
+     window, no host sync in a replay (sync debug mode error), env-steps/s
+     of both forms in turns and each one's busy share under the profiler;
+     (c) ``run_gumbel_mcts`` (B = 256, 128x6 bfloat16, 32/16) on the minmax
+     route compiled against eager, bit for bit over the first call and a
+     replay, 64 min/max and 32 claim launches and no host sync in a replay,
+     ms per simulation of both; (d) 25x25 (which the bundle word cannot
+     hold), B = 4096: a replayed 64-step window equal to the eager one bit
+     for bit with no host sync, and its first 64 envs equal to a CPU replay.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
 20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
-measurement layer, 25-26 the compiled forms; the launch counts are set to 0 before the search, each
-match, the training run, the ``gogame`` game, the ``GoEnv`` games, phase 20,
-each sharded rollout of 22a, each ablation's windows, each layout's
-search, phase 25's compiled windows and phase 26's searches, and read after.  After phase
-15, a replay of the recipe's size takes one add of more rows than its
-capacity (81,920 into 65,536): every slot must hold one whole row, the last
-65,536 in order.
-The line before the nvidia-smi line is a JSON object with both kernels'
+measurement layer, 25-26 the compiled forms, 27 the minmax route compiled;
+the launch counts are set to 0 before the search, each match, the training
+run, the ``gogame`` game, the ``GoEnv`` games, phase 20, each sharded
+rollout of 22a, each ablation's windows, each layout's search, phase 25's
+compiled windows and phase 26's searches, and read after; phase 27 reads
+them around each path it drives.  After phase 15, a replay of the recipe's
+size takes one add of more rows than its capacity (81,920 into 65,536):
+every slot must hold one whole row, the last 65,536 in order.
+The line before the nvidia-smi line is a JSON object with the three kernels'
 numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
 exits non-zero without printing a result when CUDA is unavailable.
 """
@@ -2167,6 +2185,216 @@ def compiled_search_path(dev, states, bundle_lib, minmax_lib):
     return replay_launches
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise at any synchronizing CUDA call inside the block (PyTorch's sync
+    debug mode, set to error)."""
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+def minmax_compiled_path(dev, states, libs):
+    """Phase 27: the claim flood kernel and the minmax route compiled (CUDA
+    graphs; the claim kernel keeps its flood on the card), from phase 4's
+    steady-state 19x19 B = 12288 ``states``.  ``libs`` are the bundle,
+    min/max and claim kernels' libraries.  Sets the minmax route and leaves
+    the default one.  Returns the claim kernel's numbers: its check, its
+    times and bound, and the launches of each kernel on each path."""
+    from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
+    from gymgo_tpu_torch.convert import load_aznet_npz
+    from gymgo_tpu_torch.core import flood as tflood
+    from gymgo_tpu_torch.core.flood import claim_flood_plain
+    from gymgo_tpu_torch.core.state import batch_init_state
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
+    from gymgo_tpu_torch.ops import claim_flood as cf
+    from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
+    from gymgo_tpu_torch.utils.graphs import eager
+
+    t_phase = time.perf_counter()
+    names = ("bundle", "minmax", "claim")
+    fields = ("actions", "rewards", "dones", "invalid", "final_states")
+    B, N, WINDOW, REPEATS = states.shape[0], states.shape[-1], 64, 3
+
+    def counts():
+        return {name: lib.launches for name, lib in zip(names, libs)}
+
+    def launched(before):
+        return {name: lib.launches - before[name] for name, lib in zip(names, libs)}
+
+    def same(x, y, what):
+        for field in fields:
+            if not torch.equal(getattr(x, field), getattr(y, field)):
+                fail(f"27: {what} differs on {field}")
+
+    # (a) the kernel against its plain version, bit for bit on every cell: random boards at N = 5 ... 32,
+    # the shaped boards and odd batches of phases 3 and 8, phase 4's steady-state boards; then timed
+    a, b = boards_of(states)
+    cases = board_cases(dev, torch.Generator(device=dev).manual_seed(SEED + 27), (5, 9, 19, 22, 23, 25, 32),
+                        (19, 22, 25, 32))
+    cases.append((f"steady 19x19 B={B}", a, b))
+    before = counts()
+    err = 0
+    for name, ca, cb in cases:
+        k = cf.claim_flood_cuda(ca, cb)
+        p = claim_flood_plain(ca, cb)
+        torch.cuda.synchronize()
+        err = max(err, int((k.to(torch.int32) - p.to(torch.int32)).abs().max()))
+        if not torch.equal(k, p):
+            fail(f"27a: claim kernel != plain on {name}: {int((k != p).sum())} cells differ")
+    kernel_ms = time_ms(lambda: cf.claim_flood_cuda(a, b), 200)
+    plain_ms = time_ms(lambda: claim_flood_plain(a, b), 5)
+    kernel_ms_2 = time_ms(lambda: cf.claim_flood_cuda(a, b), 200)
+    for lib, n in zip(libs, before.values()):
+        lib.launches = n
+    # 2 bytes in (two uint8 planes), 1 out (one uint8 plane) per cell
+    bound_ms = (2 + 1) * B * N * N / H100_BYTES_PER_S * 1e3
+    print(f"[27a claim kernel vs plain] {len(cases)} cases bit-exact on every cell (max |diff| {err}); 19x19 "
+          f"B={B} steady state: kernel {kernel_ms:.4f} ms (again {kernel_ms_2:.4f}), plain {plain_ms:.4f} ms, "
+          f"byte bound {bound_ms:.6f} ms ({(2 + 1) * B * N * N} bytes at 3.35 TB/s)", flush=True)
+
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        # (b) cell 2: the minmax route's compiled window against its eager form from the same seed, bit for bit,
+        # over the first call and two replays; the launches of all three kernels; no host sync in a replay;
+        # env-steps/s of both forms in turns; the device's busy share of each
+        cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+        env = BatchGoEnv(cfg, device=dev)
+        if not env.compiled:
+            fail("27b: BatchGoEnv is not compiled on the minmax route on the card")
+        gc, ge = (torch.Generator(device=dev).manual_seed(SEED + 270) for _ in range(2))
+        s, window_launches = states, []
+        for i in range(3):
+            before = counts()
+            got = env.rollout(gc, s, WINDOW)
+            window_launches.append(launched(before))
+            with eager():
+                want = env.rollout(ge, s, WINDOW)
+            same(got, want, f"27b: the minmax route's compiled window at call {i}")
+            s = got.final_states
+        expected = {"bundle": 0, "minmax": WINDOW + 1, "claim": WINDOW}
+        if any(x != expected for x in window_launches):
+            fail(f"27b: launches a compiled window {window_launches}, expected {expected}")
+        if not torch.equal(gc.get_state(), ge.get_state()):
+            fail("27b: the compiled window left its generator elsewhere than the eager one")
+        (graph,) = env._rollout.graphs.values()
+        with no_host_sync():
+            env.rollout(gc, s, WINDOW)
+        torch.cuda.synchronize()  # the replay's device work ends before the first timed window starts
+        rates = {"compiled": [], "eager": []}
+        for _ in range(REPEATS):
+            for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+                t0 = time.perf_counter()
+                r = _in(ctx, env.rollout, gc, s, WINDOW)
+                checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
+                rates[form].append(B * WINDOW / (time.perf_counter() - t0))
+                if not math.isfinite(checksum):
+                    fail(f"27b: checksum not finite: {checksum}")
+        for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+            wall_us, rows = device_profile(lambda: _in(ctx, env.rollout, gc, s, WINDOW))
+            busy_us = sum(r[0] for r in rows)
+            if busy_us <= 0:
+                fail(f"27b: the profiler saw no device time in the {form} window")
+            print(f"[27b minmax route compiled] 19x19 B={B}, {WINDOW}-step windows, {form}: {rates_text(rates[form])}; "
+                  f"profiled {wall_us / WINDOW:.1f} us/step wall, device busy {busy_us / WINDOW:.1f} us/step "
+                  f"({100 * busy_us / wall_us:.1f}% busy), {sum(r[1] for r in rows) / WINDOW:.1f} kernels/step",
+                  flush=True)
+        print(f"[27b minmax route compiled] == eager bit for bit over a first call and 2 replays (actions, rewards, "
+              f"dones, invalid, final states, the generator); launches a window {window_launches[-1]}; 0 host syncs "
+              f"in a replay (sync debug mode error); graph {graph.nodes} nodes ({graph.nodes / WINDOW:.1f} a step), "
+              f"captured in {graph.capture_seconds:.3f} s", flush=True)
+
+        # (c) cell 3 on the minmax route: the compiled Gumbel search against the eager one, bit for bit over the
+        # first call and a replay; launches and no host sync in a replay; ms per simulation of both forms
+        SIMS, CONSIDERED, SB = 32, 16, 256
+        net16 = load_aznet_npz(NET_19, device=dev, dtype=torch.bfloat16)
+        roots = states[:SB].clone()
+
+        def search(seed, ctx):
+            with ctx():
+                return run_gumbel_mcts(torch.Generator(device=dev).manual_seed(seed), roots, net16,
+                                       num_simulations=SIMS, max_considered=CONSIDERED)
+
+        for i in range(2):
+            got, want = search(SEED + 271 + i, contextlib.nullcontext), search(SEED + 271 + i, eager)
+            if not all(torch.equal(p, q) for p, q in zip(got, want)):
+                fail(f"27c: the compiled search on the minmax route differs from the eager one at call {i}")
+        before = counts()
+        with no_host_sync():
+            search(SEED + 271, contextlib.nullcontext)
+        search_launches = launched(before)
+        expected = {"bundle": 0, "minmax": 2 * SIMS, "claim": SIMS}
+        if search_launches != expected:
+            fail(f"27c: launches a replayed search {search_launches}, expected {expected}")
+        search_ms = {}
+        for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager), ("compiled", contextlib.nullcontext)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search(SEED + 271, ctx)
+            torch.cuda.synchronize()
+            search_ms.setdefault(form, []).append(1e3 * (time.perf_counter() - t0) / SIMS)
+        print(f"[27c minmax route compiled search] 19x19 128x6 bfloat16, B={SB}, Gumbel {SIMS}/{CONSIDERED}: compiled "
+              f"== eager bit for bit over the first call and a replay; a replay launches {search_launches}, 0 host "
+              f"syncs; ms/simulation compiled {min(search_ms['compiled']):.3f} "
+              f"({SB / (SIMS * min(search_ms['compiled']) / 1e3):.1f} searches/s), eager {search_ms['eager'][0]:.3f}",
+              flush=True)
+
+        # (d) 25x25, which the bundle word cannot hold: B = 4096 compiled windows (the first from fresh boards
+        # captures, the second replays) against the eager window, bit for bit; a B = 64 slice replayed on the CPU
+        N25, B25, W25 = 25, 4096, 64
+        cfg25 = EnvConfig(board_size=N25, batch_size=B25, reward_method=HEURISTIC, auto_reset=True)
+        env25 = BatchGoEnv(cfg25, device=dev)
+        if not env25.compiled:
+            fail("27d: BatchGoEnv is not compiled at 25x25 on the minmax route")
+        g25 = torch.Generator(device=dev).manual_seed(SEED + 272)
+        t0 = time.perf_counter()
+        first = env25.rollout(g25, batch_init_state(B25, N25, device=dev), W25)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        start = first.final_states
+        ge25 = torch.Generator(device=dev).manual_seed(SEED + 273)
+        g25.manual_seed(SEED + 273)
+        before = counts()
+        t0 = time.perf_counter()
+        with no_host_sync():
+            got = env25.rollout(g25, start, W25)
+        got.rewards.sum().item()
+        replay_s = time.perf_counter() - t0
+        launches25 = launched(before)
+        t0 = time.perf_counter()
+        with eager():
+            want = env25.rollout(ge25, start, W25)
+        want.rewards.sum().item()
+        eager_s = time.perf_counter() - t0
+        same(got, want, "27d: the 25x25 compiled window")
+        expected = {"bundle": 0, "minmax": W25 + 1, "claim": W25}
+        if launches25 != expected:
+            fail(f"27d: launches a replayed 25x25 window {launches25}, expected {expected}")
+        acts = iter(got.actions[:, :64].cpu())
+        cpu = rollout(torch.Generator(), start[:64].cpu(), W25, EnvConfig(board_size=N25, batch_size=64,
+                      reward_method=HEURISTIC, auto_reset=True), policy_fn=lambda _g, _s: next(acts))
+        rows = {"final_states": got.final_states[:64], "rewards": got.rewards[:, :64], "dones": got.dones[:, :64]}
+        for field, x in rows.items():
+            if not torch.equal(x.cpu(), getattr(cpu, field)):
+                fail(f"27d: the 25x25 window's first 64 envs differ from the CPU replay on {field}")
+        if got.invalid.any() or not (got.rewards != 0).any():
+            fail("27d: an invalid action, or no reward read from the claimed areas, in the 25x25 window")
+        print(f"[27d 25x25 compiled] B={B25}, {W25}-step windows on the minmax route: a replay == eager bit for bit "
+              f"(0 host syncs, launches {launches25}), its first 64 envs == the CPU replay; first window (eager, then "
+              f"the capture) {first_s:.2f} s, a replay {replay_s:.3f} s ({B25 * W25 / replay_s:.1f} env-steps/s), "
+              f"eager {eager_s:.3f} s ({B25 * W25 / eager_s:.1f} env-steps/s); phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        tflood.set_flood_route(previous)
+    return {
+        "max_abs_err": err, "ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "window": window_launches[-1], "search": search_launches, "window_25x25": launches25,
+    }
+
+
 def _in(ctx, fn, *args):
     with ctx():
         return fn(*args)
@@ -2183,6 +2411,7 @@ def main() -> int:
     from gymgo_tpu_torch.core.state import batch_init_state
     from gymgo_tpu_torch.env.batch_env import rollout
     from gymgo_tpu_torch.ops import bundle_flood as bf
+    from gymgo_tpu_torch.ops import claim_flood as cf
     from gymgo_tpu_torch.ops import minmax_flood as mf
 
     tflood.set_flood_route("bitpack")  # phases 3-7 run the default route
@@ -2201,18 +2430,19 @@ def main() -> int:
     print(f"[1 device] torch: {kind} (count {count}); nvidia-smi: {smi}", flush=True)
 
     # 2. build: one nvcc per source, started together
-    libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)  # the kernels phases 12-26 count
+    built = libs + (cf.CLAIM_FLOOD,)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as ex:
-        list(ex.map(lambda lib: lib.function(), libs))
+    with ThreadPoolExecutor(len(built)) as ex:
+        list(ex.map(lambda lib: lib.function(), built))
     build_s = time.perf_counter() - t0
-    for lib in libs:
+    for lib in built:
         ptxas = " | ".join(l.split(":", 1)[-1].strip() for l in lib.build_log.splitlines()
                            if "spill" in l or ("ptxas info" in l and "Used" in l))
         if re.search(r"[1-9][0-9]* bytes spill", ptxas):
             fail(f"{lib.source.name} spills registers: {ptxas}")
         print(f"[2 build] {lib.source.name} built and loaded in {lib.build_seconds:.2f} s "
-              f"(both: {build_s:.2f} s); {ptxas}", flush=True)
+              f"(all {len(built)}: {build_s:.2f} s); {ptxas}", flush=True)
 
     # 3. kernel against its plain version, bit for bit
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2237,7 +2467,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     states = batch_init_state(B, N, device=dev)
     torch.cuda.synchronize()
-    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = 0
+    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = cf.CLAIM_FLOOD.launches = 0
     t0 = time.perf_counter()
     r = rollout(gen, states, WARMUP, cfg)
     states = r.final_states
@@ -2253,8 +2483,9 @@ def main() -> int:
     expected = (WARMUP + 1) + REPEATS * (WINDOW + 1)
     if launches != expected:
         fail(f"bundle flood launched {launches} times on the main path, expected {expected}")
-    if minmax_on_default != 0:
-        fail(f"minmax flood launched {minmax_on_default} times on the default route")
+    if minmax_on_default != 0 or cf.CLAIM_FLOOD.launches != 0:
+        fail(f"minmax flood launched {minmax_on_default} times, claim flood {cf.CLAIM_FLOOD.launches} times, "
+             f"on the default route")
     if int(n_invalid) != 0:
         fail(f"{int(n_invalid)} steps flagged an invalid action on the main path")
     stones = states[:, :2].to(torch.int32).sum().item() / B
@@ -2324,19 +2555,22 @@ def main() -> int:
     # 9. the minmax route, from phase 4's steady-state states
     tflood.set_flood_route("unrolled")
     gen9 = torch.Generator(device=dev).manual_seed(SEED + 9)
-    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = 0
+    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = cf.CLAIM_FLOOD.launches = 0
     rates9, runs9, starts9 = timed_windows(rollout, gen9, states, cfg, WINDOW, REPEATS)
     mm_launches, bundle_on_minmax = mf.MINMAX_FLOOD.launches, bf.BUNDLE_FLOOD.launches
+    claim_launches = cf.CLAIM_FLOOD.launches
     if mm_launches != REPEATS * (WINDOW + 1):
         fail(f"minmax flood launched {mm_launches} times on the minmax route, "
              f"expected {REPEATS * (WINDOW + 1)}")
+    if claim_launches != REPEATS * WINDOW:
+        fail(f"claim flood launched {claim_launches} times on the minmax route, expected {REPEATS * WINDOW}")
     if bundle_on_minmax != 0:
         fail(f"bundle flood launched {bundle_on_minmax} times on the minmax route")
     if any(int(x.invalid.sum()) for x in runs9):
         fail("a step flagged an invalid action on the minmax route")
     print(f"[9 minmax route] 19x19 B={B}: {rates_text(rates9)}; games finished "
           f"{int(sum(x.dones.sum() for x in runs9))}; minmax kernel launches {mm_launches}, "
-          f"bundle kernel launches {bundle_on_minmax}", flush=True)
+          f"claim kernel launches {claim_launches}, bundle kernel launches {bundle_on_minmax}", flush=True)
 
     # 10. route equivalence: card minmax route -> card bundle route, and -> CPU
     tflood.set_flood_route("bitpack")
@@ -2397,6 +2631,7 @@ def main() -> int:
     study_launches = phase("24c", studies)
     compiled_launches = phase("25", compiled_path, dev, states, *libs)
     compiled_search_launches = phase("26", compiled_search_path, dev, states, *libs)
+    claim = phase("27", minmax_compiled_path, dev, states, built)
     print(f"[seconds] each phase's: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
 
@@ -2436,11 +2671,31 @@ def main() -> int:
         "launches_gogame": gogame_minmax,
         "launches_go_env": env_minmax,
         "launches_gtp": gtp_minmax,
+        "launches_compiled_minmax_window": claim["window"]["minmax"],
+        "launches_compiled_minmax_search": claim["search"]["minmax"],
+        "launches_compiled_25x25_window": claim["window_25x25"]["minmax"],
         "max_abs_err": mm_err,
         "ms": min(mm_ms, mm_ms_2),
         "plain_ms": mm_plain_ms,
         # 2 bytes in (two uint8 planes), 4 out (two int16 planes) per cell
         "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "claim_flood",
+        "route": "cuda",
+        "source": "gymgo_tpu_torch/csrc/claim_flood.cu",
+        "replaces": "gymgo_tpu/core/flood.py:190 (flood_or_unrolled, an XLA while_loop; no Pallas kernel)",
+        # the minmax route's compiled window (27b), the slice's main path
+        "launches": claim["window"]["claim"],
+        "launches_minmax_route_eager": claim_launches,
+        "launches_compiled_minmax_search": claim["search"]["claim"],
+        "launches_compiled_25x25_window": claim["window_25x25"]["claim"],
+        "max_abs_err": claim["max_abs_err"],
+        "ms": claim["ms"],
+        "plain_ms": claim["plain_ms"],
+        # 2 bytes in (two uint8 planes), 1 out (one uint8 plane) per cell
+        "bound_ms": claim["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]}))

@@ -4,8 +4,9 @@ an NVIDIA H100.
 The same 6-channel int8 state ``(B, 6, N, N)`` is stepped in lockstep for
 thousands of games; the flood that classifies groups and claims areas every
 step runs hand CUDA kernels: the bundle flood (``csrc/bundle_flood.cu``) on the
-default route, the min/max liberty flood (``csrc/minmax_flood.cu``) on the
-minmax route (``GYMGO_FLOOD``, as in the JAX package).  On top of the env:
+default route, the min/max liberty flood (``csrc/minmax_flood.cu``) and the
+claim flood (``csrc/claim_flood.cu``) on the minmax route (``GYMGO_FLOOD``,
+as in the JAX package).  On top of the env:
 the AZNet (``models``) with a loader of the JAX package's checkpoints
 (``convert``), search, match play, self-play, replay and the learner
 (``rl``), and the training loop (``train``, ``python -m

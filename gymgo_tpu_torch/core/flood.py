@@ -12,8 +12,11 @@ The floods, each with a plain PyTorch version that checks convergence on the
 host every few substeps:
 
 * ``flood_or``: an OR-flood through a mask; the stateless capture path of
-  ``step_states`` and the scoring use it on CPU tensors, the minmax route's
-  claim flood on every device.
+  ``step_states`` uses it on CPU tensors.
+* the claim flood: which colours each empty region touches, a two-bit
+  ``flood_or`` of the empty cells.  ``claim_flood_plain`` is its plain
+  version; on a CUDA tensor the minmax route and the score of boards over
+  22x22 run the hand kernel of ``gymgo_tpu_torch.ops.claim_flood`` instead.
 * the bundle flood: one packed int32 OR-flood per cell that yields the liberty
   classes, the Trump-Taylor claims and the atari encoding of every step.
   ``bundle_flood_plain`` is its plain version; on a CUDA tensor
@@ -24,14 +27,14 @@ host every few substeps:
   CUDA tensor ``liberty_classes_from_minmax`` runs the hand kernel of
   ``gymgo_tpu_torch.ops.minmax_flood`` instead.
 
-Both kernels converge each board on its own without a host sync.
+The kernels converge each board on its own without a host sync.
 
 Routes.  As in the JAX package, ``GYMGO_FLOOD`` (read at import; default
 ``bitpack``) selects what ``flood_bundle_best`` and
 ``liberty_classification_best`` are: ``bitpack``, ``gatepack`` and ``pallas``
 the bundle flood, every other value the minmax route
-(``flood_bundle_from_parts``: the min/max classification plus a separate
-two-bit claim flood).  ``set_flood_route`` re-binds them inside a process.
+(``flood_bundle_from_parts``: the min/max classification plus the claim
+flood).  ``set_flood_route`` re-binds them inside a process.
 
 Truncation.  ``GYMGO_BITPACK_FIXED_ONLY=1`` (read at import with
 ``GYMGO_BITPACK_PREFIX``, default 16, as in the JAX package) makes
@@ -58,6 +61,7 @@ __all__ = [
     "neighbor_count_edge1",
     "flood_or",
     "flood_or_unrolled",
+    "claim_flood_plain",
     "flood_min_max_two_colors",
     "flood_min_max_two_colors_unrolled",
     "minmax_seeds",
@@ -401,17 +405,28 @@ def liberty_classes_bitpack(color_a: torch.Tensor, color_b: torch.Tensor):
     return one_lib, multi_lib, atari_enc
 
 
+def claim_flood_plain(color_a: torch.Tensor, color_b: torch.Tensor) -> torch.Tensor:
+    """uint8 ``(B, N, N)``: on each empty cell, bit 0 if its empty region
+    touches ``color_a``, bit 1 if it touches ``color_b``; 0 on stones.  Plain
+    PyTorch version of ``ops.claim_flood``'s kernel: the two-bit touch word of
+    JAX's ``flood_bundle_from_parts`` flooded by ``flood_or_best``, which
+    checks its convergence on the host."""
+    a, b = color_a.bool(), color_b.bool()
+    empty = ~(a | b)
+    touch = (empty & neighbor_or(a)).to(torch.uint8)
+    touch |= (empty & neighbor_or(b)).to(torch.uint8) << 1
+    return flood_or_best(touch, empty)
+
+
 def flood_bundle_from_parts(color_a: torch.Tensor, color_b: torch.Tensor):
     """The bundle flood's five outputs from the minmax route: the min/max
-    liberty classification (the hand kernel on CUDA tensors) plus a separate
-    two-bit claim flood of the empty regions, which checks its convergence on
-    the host."""
+    liberty classification plus the claim flood of the empty regions (each
+    a hand kernel on CUDA tensors, with no host sync)."""
+    from gymgo_tpu_torch.ops.claim_flood import claim_flood
+
     one_lib, multi_lib, atari_enc = liberty_classes_from_minmax(color_a, color_b)
-    empty = ~(color_a | color_b)
-    touch = (empty & neighbor_or(color_a)).to(torch.uint8)
-    touch |= (empty & neighbor_or(color_b)).to(torch.uint8) << 1
-    touch = flood_or_best(touch, empty)
-    return one_lib, multi_lib, empty & (touch == 1), empty & (touch == 2), atari_enc
+    claims = claim_flood(color_a, color_b)
+    return one_lib, multi_lib, claims == 1, claims == 2, atari_enc
 
 
 # Every GYMGO_FLOOD value of the JAX package floods claims with an OR-flood of

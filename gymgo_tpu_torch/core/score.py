@@ -5,9 +5,10 @@ Every cell of an empty region learns whether the region touches black and/or
 white; a region counts for a colour iff it touches only that colour.  On CUDA
 tensors the claims are read from the bundle word of the hand kernel, as the
 step reads them, with no host sync, whatever the flood route (the JAX package
-scores by one flood on every route too).  CPU tensors, and boards too large
-for the bundle word (N*N > 511), take a two-bit ``flood_or_best``, the plain
-flood that checks convergence on the host.
+scores by one flood on every route too); boards too large for the bundle word
+(N*N > 511, up to 32x32) take the claim flood's hand kernel, with no host sync
+either.  CPU tensors take the claim flood's plain version, which checks its
+convergence on the host.
 """
 
 from __future__ import annotations
@@ -17,24 +18,24 @@ import torch
 from gymgo_tpu_torch import govars
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core.flood import neighbor_or
+from gymgo_tpu_torch.ops.claim_flood import claim_flood
 
 __all__ = ["areas", "areas_planes", "winning", "winning_planes", "liberties", "num_liberties"]
 
 
-def _claims(black: torch.Tensor, white: torch.Tensor, empty: torch.Tensor):
+def _claims(black: torch.Tensor, white: torch.Tensor):
     """(only_black, only_white): empty cells whose region touches one colour."""
-    if black.is_cuda and empty[0].numel() <= _flood.MAX_BUNDLE_CELLS:
-        return _flood.flood_bundle(black.contiguous(), white.contiguous())[2:4]
-    touch = (empty & neighbor_or(black)).to(torch.uint8)
-    touch |= (empty & neighbor_or(white)).to(torch.uint8) << 1
-    touch = _flood.flood_or_best(touch, empty)
-    return empty & (touch == 1), empty & (touch == 2)
+    black, white = black.contiguous(), white.contiguous()
+    if black.is_cuda and black[0].numel() <= _flood.MAX_BUNDLE_CELLS:
+        return _flood.flood_bundle(black, white)[2:4]
+    claims = claim_flood(black, white)
+    return claims == 1, claims == 2
 
 
 def areas_planes(black: torch.Tensor, white: torch.Tensor):
     """(black_area, white_area) int32 (B,) from bool colour planes (B, N, N)."""
     b = black.shape[0]
-    only_black, only_white = _claims(black, white, ~(black | white))
+    only_black, only_white = _claims(black, white)
     black_area = (black | only_black).reshape(b, -1).sum(1, dtype=torch.int32)
     white_area = (white | only_white).reshape(b, -1).sum(1, dtype=torch.int32)
     return black_area, white_area

@@ -128,9 +128,9 @@ def shard_over_envs(fn: Callable, mesh, concat: Optional[bool] = None) -> Callab
     the list of local shards' results when it spans processes; ``concat``
     overrides that.
 
-    The per-shard calls make no collective: a shard's convergence checks are
-    its own (the minmax route's host check in ``core.flood.flood_or``), and
-    the bundle kernel launches once per shard on the shard's contiguous rows.
+    The per-shard calls make no collective: the flood kernels launch once
+    per shard on the shard's contiguous rows, and on the CPU a shard's
+    convergence checks (``core.flood.flood_or``) are its own.
     """
     join = mesh.is_local if concat is None else concat
     local = mesh.local_shards()
@@ -272,10 +272,9 @@ class BatchGoEnv:
     into the graph: hand such a policy to the plain ``rollout``).
 
     ``compiled`` says whether the graphs are used: it is false on the CPU and
-    on the minmax route (``GYMGO_FLOOD=unrolled`` and every non-bundle value),
-    whose claim flood checks its convergence on the host, so there the
-    methods run the eager functions.  The JAX package compiles that route
-    too; the port cannot until the claim flood makes no host sync.
+    on boards over the route's kernels' size (22x22 on the bundle route,
+    32x32 on the minmax route, ``GYMGO_FLOOD=unrolled`` and every non-bundle
+    value), and there the methods run the eager functions.
     """
 
     def __init__(self, config: EnvConfig, device=None):
@@ -289,7 +288,8 @@ class BatchGoEnv:
     @property
     def compiled(self) -> bool:
         """True when ``step``, ``rollout`` and ``uniform_random_actions``
-        replay CUDA graphs: on the card, on the bundle route."""
+        replay CUDA graphs: on the card, at a board size the route's kernels
+        take (``utils.graphs.capturable``)."""
         return self.device.type == "cuda" and capturable(self.config.board_size)
 
     def reset(self) -> torch.Tensor:

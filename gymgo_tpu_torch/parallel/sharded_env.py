@@ -48,9 +48,9 @@ class ShardedGoEnv:
     over all of its shards (``rollout`` keyed as ``BatchGoEnv.rollout`` is):
     the per-shard work makes no collective, and the sampler's words are still
     drawn once for the whole batch inside the graph.  ``compiled`` is false,
-    and the eager functions run, on the CPU, on the minmax route (its claim
-    flood syncs with the host), and where this process's shards lie on more
-    than one card (a graph runs on one).
+    and the eager functions run, on the CPU, on boards over the route's
+    kernels' size (``utils.graphs.capturable``), and where this process's
+    shards lie on more than one card (a graph runs on one).
     """
 
     def __init__(self, config: EnvConfig, mesh: _mesh.Mesh | None = None):
@@ -71,7 +71,8 @@ class ShardedGoEnv:
     @property
     def compiled(self) -> bool:
         """True when ``step`` and ``rollout`` replay CUDA graphs: this
-        process's shards on one card, on the bundle route."""
+        process's shards on one card, at a board size the route's kernels
+        take."""
         return (self._device is not None and self._device.type == "cuda"
                 and capturable(self.config.board_size))
 

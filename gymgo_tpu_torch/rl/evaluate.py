@@ -12,8 +12,9 @@ CUDA graph, the body of the JAX package's ``lax.scan`` over the plies
 a policy object built once replays across matches).  The "every game is
 done" check stays between the replays, one host read a ply.  A policy must
 be a function of its ``(generator, states)`` on the card with no host sync:
-one that reads Python state replays what it read at the capture.  The minmax
-route and boards with N*N > 511 play eagerly (``utils.graphs.capturable``).
+one that reads Python state replays what it read at the capture.  Boards
+over the route's kernels' size (22x22 on the bundle route, 32x32 on the
+minmax route) play eagerly (``utils.graphs.capturable``).
 """
 
 from __future__ import annotations

@@ -29,9 +29,9 @@ On CUDA tensors a whole search is one CUDA graph, the counterpart of the
 JAX package's ``lax.fori_loop`` over the simulations under ``jax.jit``
 (``utils.graphs.compiled``): keyed by the net (by identity), the simulation
 counts, the constants and the tree layout, replayed with the states, the
-generator and the noise copied in.  The minmax route and boards with
-N*N > 511 sync with the host and run the search eagerly
-(``utils.graphs.capturable``); ``run_gumbel_mcts.fn`` is the eager search,
+generator and the noise copied in.  Boards over the route's kernels' size
+(22x22 on the bundle route, 32x32 on the minmax route) run the search
+eagerly (``utils.graphs.capturable``); ``run_gumbel_mcts.fn`` is the eager search,
 which the studies measure.
 
 Ties are resolved as in JAX so that, given the same Gumbel noise, both

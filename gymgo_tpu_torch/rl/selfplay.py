@@ -11,9 +11,9 @@ inside it runs inline, so its kernels join the move's graph): the Python
 loop over the window replays it once a move and writes its rows into
 preallocated ``(T, B, ...)`` tensors; the value targets are computed once a
 window, eagerly.  A window keeps one graph per mode, net, configuration,
-batch and search setting, and a move makes no host sync.  The minmax route
-and boards with N*N > 511 sync and run the move eagerly
-(``utils.graphs.capturable``).
+batch and search setting, and a move makes no host sync.  Boards over the
+route's kernels' size (22x22 on the bundle route, 32x32 on the minmax route)
+run the move eagerly (``utils.graphs.capturable``).
 
 Every draw the JAX package takes from a key can be handed in instead
 (``gumbel``, ``dirichlet``, ``orientations``), one row per step of the window,

@@ -32,10 +32,11 @@ as it is: a path's eager form, to compare with or time against its graphs.
 What a graph may hold:
 
 * No host sync: a sync inside the capture makes the capture fail, and a failed
-  capture raises; nothing falls back to eager running on the card.  The
-  minmax route's claim flood and the scoring of boards the bundle word cannot
-  hold (N*N > 511) sync, so their callers stay eager (``capturable``, which
-  ``compiled(..., when=)`` reads per call).
+  capture raises; nothing falls back to eager running on the card.  Every
+  flood on the card is a hand kernel that makes none, up to the kernels'
+  board sizes: 22x22 on the bundle route, 32x32 on the minmax route.  Boards
+  over those run eagerly (``capturable``, which ``compiled(..., when=)`` reads
+  per call), where the kernels raise.
 * Draws from a ``torch.Generator`` argument: the graph draws from a
   generator of its own, registered with it
   (``CUDAGraph.register_generator_state``), which each replay sets to the
@@ -68,6 +69,8 @@ import torch
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.ops import cuda_lib
+from gymgo_tpu_torch.ops.claim_flood import MAX_CLAIM_CELLS
+from gymgo_tpu_torch.ops.minmax_flood import MAX_MINMAX_CELLS
 
 __all__ = ["compiled", "Compiled", "CapturedGraph", "capturable", "capturable_states", "register_key_part", "eager"]
 
@@ -79,10 +82,13 @@ _inline = 0
 
 def capturable(board_size: int) -> bool:
     """True when the step, the rollout and the area score of ``board_size``
-    boards make no host sync on the card: the bundle route (the minmax
-    route's claim flood checks its convergence on the host) and boards whose
-    cell codes the bundle word holds."""
-    return _flood.flood_route in _flood.BUNDLE_ROUTES and board_size * board_size <= _flood.MAX_BUNDLE_CELLS
+    boards run on the card's kernels, which make no host sync: on the bundle
+    route boards whose cell codes the bundle word holds (N*N <= 511), on the
+    minmax route boards the min/max and claim kernels take (N <= 32)."""
+    cells = board_size * board_size
+    if _flood.flood_route in _flood.BUNDLE_ROUTES:
+        return cells <= _flood.MAX_BUNDLE_CELLS
+    return cells <= min(MAX_MINMAX_CELLS, MAX_CLAIM_CELLS)
 
 
 def capturable_states(arguments: dict) -> bool:

@@ -551,7 +551,8 @@ def make_net_genmove(checkpoint: str, board_size: int, channels: int,
     and PUCT movers through ``run_gumbel_mcts``, ``run_mcts`` and
     ``compact_subtree`` (their shapes are the same at every move, the PUCT
     mover's empty tree included), the greedy one its forward and masked
-    argmax.  The minmax route and boards over 22x22 run eagerly."""
+    argmax.  Boards over the route's kernels' size (22x22 on the bundle
+    route, 32x32 on the minmax route) run eagerly."""
     import torch
 
     from gymgo_tpu_torch.convert import load_aznet_checkpoint

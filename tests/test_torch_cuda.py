@@ -1,5 +1,5 @@
-"""The port on a CUDA card: each flood kernel against its plain version, on the
-rollout of its route, and on bad input; the stateless step, the area score,
+"""The port on a CUDA card: each flood kernel (bundle, min/max, claim) against
+its plain version, on the rollout of its route, and on bad input; the stateless step, the area score,
 the net and the search against the CPU plain path; the step's ablation
 switches and ``measure_convergence``'s kernel check; the compiled forms
 (CUDA graphs) against their eager functions, the search, the self-play move
@@ -18,12 +18,13 @@ import torch
 
 from gymgo_tpu_torch.config import EnvConfig
 from gymgo_tpu_torch.core import flood as tflood
-from gymgo_tpu_torch.core.flood import bundle_flood_plain, minmax_flood_plain
+from gymgo_tpu_torch.core.flood import bundle_flood_plain, claim_flood_plain, minmax_flood_plain
 from gymgo_tpu_torch.core import score as tscore
 from gymgo_tpu_torch.core import step as tstep
 from gymgo_tpu_torch.core.state import batch_init_state
 from gymgo_tpu_torch.env.batch_env import rollout
 from gymgo_tpu_torch.ops import bundle_flood as tbundle
+from gymgo_tpu_torch.ops import claim_flood as tclaim
 from gymgo_tpu_torch.ops import minmax_flood as tminmax
 from gymgo_tpu_torch.utils import graphs
 from torch_boards import (adversarial_boards, component_boards, midgame_states, random_boards,
@@ -118,8 +119,10 @@ def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_de
     try:
         g = torch.Generator(device=cuda_device).manual_seed(0)
         minmax, bundle = tminmax.MINMAX_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches
+        claim = tclaim.CLAIM_FLOOD.launches
         r = rollout(g, batch_init_state(96, 9, device=cuda_device), 150, cfg)
         assert tminmax.MINMAX_FLOOD.launches == minmax + 151  # one per step + the seed
+        assert tclaim.CLAIM_FLOOD.launches == claim + 150  # the step's claims
         assert tbundle.BUNDLE_FLOOD.launches == bundle
         assert r.dones.any() and not r.invalid.any()
         acts = iter(r.actions.cpu())
@@ -142,6 +145,35 @@ def test_minmax_kernel_rejects_bad_input(cuda_device):
         tminmax.minmax_flood_cuda(big, big)
     with pytest.raises(ValueError, match="CUDA"):
         tminmax.minmax_flood_cuda(ok, ok.cpu())
+
+
+@pytest.mark.parametrize("n", range(1, 33))
+def test_claim_kernel_matches_plain(n, cuda_device):
+    a, b = _boards_on(cuda_device, n, 40 + n)
+    launches = tclaim.CLAIM_FLOOD.launches
+    got = tclaim.claim_flood_cuda(a, b)
+    assert tclaim.CLAIM_FLOOD.launches == launches + 1
+    # bit for bit on every cell: the region's word on empty cells, 0 on stones
+    want = claim_flood_plain(a.cpu(), b.cpu())
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    assert torch.equal(tclaim.claim_flood(a.to(torch.uint8), b.to(torch.uint8)), got)
+    for (sa, sb), sw in zip(_odd_batches(a, b), _odd_batches(want, want)):
+        assert torch.equal(tclaim.claim_flood_cuda(sa, sb).cpu(), sw[0])
+
+
+def test_claim_kernel_rejects_bad_input(cuda_device):
+    ok = torch.zeros((2, 9, 9), dtype=torch.bool, device=cuda_device)
+    launches = tclaim.CLAIM_FLOOD.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tclaim.claim_flood_cuda(ok.cpu(), ok.cpu())
+    with pytest.raises(TypeError):
+        tclaim.claim_flood_cuda(ok.int(), ok.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        tclaim.claim_flood_cuda(ok.transpose(1, 2), ok.transpose(1, 2))
+    with pytest.raises(ValueError, match="1024"):
+        big = torch.zeros((1, 33, 33), dtype=torch.bool, device=cuda_device)
+        tclaim.claim_flood_cuda(big, big)
+    assert tclaim.CLAIM_FLOOD.launches == launches
 
 
 @contextlib.contextmanager
@@ -199,8 +231,9 @@ def test_areas_match_cpu_without_a_host_sync(n, cuda_device):
     # a board too large for the bundle word takes the plain flood
     big = torch.zeros((2, 6, 25, 25), dtype=torch.int8, device=cuda_device)
     big[0, 0, 3, 3] = 1
+    claim = tclaim.CLAIM_FLOOD.launches
     black_area, white_area = tscore.areas(big)
-    assert tbundle.BUNDLE_FLOOD.launches == launches + 2
+    assert tbundle.BUNDLE_FLOOD.launches == launches + 2 and tclaim.CLAIM_FLOOD.launches == claim + 1
     assert black_area.tolist() == [625, 0] and white_area.tolist() == [0, 0]
     # the score is the same function on the minmax route
     previous = tflood.set_flood_route("unrolled")
@@ -209,6 +242,21 @@ def test_areas_match_cpu_without_a_host_sync(n, cuda_device):
             assert torch.equal(got.cpu(), want)
     finally:
         tflood.set_flood_route(previous)
+
+
+@pytest.mark.parametrize("n", [23, 25, 32])
+def test_areas_over_22x22_match_cpu_without_a_host_sync(n, cuda_device):
+    states = torch.from_numpy(states_on_boards(n, 6))
+    on_card = states.to(cuda_device)
+    tscore.areas(on_card)  # build the kernel outside the sync check
+    launches, claim = tbundle.BUNDLE_FLOOD.launches, tclaim.CLAIM_FLOOD.launches
+    with _no_host_sync():
+        got_areas = tscore.areas(on_card)
+        got_sign = tscore.winning(on_card, 0.5)
+    assert tclaim.CLAIM_FLOOD.launches == claim + 2 and tbundle.BUNDLE_FLOOD.launches == launches
+    for got, want in zip(got_areas, tscore.areas(states)):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_sign.cpu(), tscore.winning(states, 0.5))
 
 
 _ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
@@ -653,6 +701,8 @@ def test_replayed_windows_make_no_host_sync(cuda_device):
 
 
 def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device):
+    # the minmax route's compiled window equals its eager form (graphs.eager)
+    # over the first call and two replays, and the bundle route's window
     from gymgo_tpu_torch.env.batch_env import BatchGoEnv
 
     cfg = EnvConfig(board_size=9, batch_size=64, reward_method="heuristic", auto_reset=True)
@@ -660,16 +710,80 @@ def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device):
     states = _midgame(cuda_device, 9, 64)
     previous = tflood.set_flood_route("unrolled")
     try:
-        assert not env.compiled
-        launches = tminmax.MINMAX_FLOOD.launches
-        got = env.rollout(torch.Generator(device=cuda_device).manual_seed(6), states, 20)
-        assert tminmax.MINMAX_FLOOD.launches - launches == 20 + 1 and not env._rollout.graphs
+        assert env.compiled
+        for i in range(3):
+            launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+            got = env.rollout(torch.Generator(device=cuda_device).manual_seed(6 + i), states, 20)
+            counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+            assert tuple(x - y for x, y in zip(counted, launches)) == (20 + 1, 20, 0)
+            with graphs.eager():
+                want = env.rollout(torch.Generator(device=cuda_device).manual_seed(6 + i), states, 20)
+            for field in _FIELDS:
+                assert torch.equal(getattr(got, field), getattr(want, field)), field
+        (graph,) = env._rollout.graphs.values()
+        assert graph.replays == 2
     finally:
         tflood.set_flood_route(previous)
     assert env.compiled
-    want = env.rollout(torch.Generator(device=cuda_device).manual_seed(6), states, 20)
+    bundle = env.rollout(torch.Generator(device=cuda_device).manual_seed(8), states, 20)
+    assert len(env._rollout.graphs) == 2  # the route is part of the key
     for field in _FIELDS:
-        assert torch.equal(getattr(got, field), getattr(want, field)), field
+        assert torch.equal(getattr(got, field), getattr(bundle, field)), field
+
+
+def test_minmax_route_replays_windows_and_steps_without_a_host_sync(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, batch_step
+
+    cfg = EnvConfig(board_size=19, batch_size=256, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    states = _midgame(cuda_device, 19, 256)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        first = env.rollout(g, states, 16)  # runs eagerly and captures
+        actions = env.uniform_random_actions(g, first.final_states)
+        env.step(first.final_states, actions)
+        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+        with _no_host_sync():
+            r = env.rollout(g, first.final_states, 16)
+            got_s, got_r = env.step(r.final_states, actions)
+        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+        # the window: a min/max classification a step and one seeding, a claim flood a step; the
+        # stateless step: two classifications (before and after the move) and one claim flood
+        assert tuple(x - y for x, y in zip(counted, launches)) == (16 + 1 + 2, 16 + 1, 0)
+        want_s, want_r = batch_step(r.final_states, actions, cfg)
+    finally:
+        tflood.set_flood_route(previous)
+    assert not r.invalid.any()
+    assert torch.equal(got_s, want_s) and all(torch.equal(x, y) for x, y in zip(got_r, want_r))
+
+
+def test_25x25_compiled_rollout_on_the_minmax_route_replays_on_cpu(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    n, b, steps = 25, 64, 40
+    cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    assert not env.compiled  # the bundle word holds no 25x25 board
+    with pytest.raises(ValueError, match="511"):
+        env.rollout(torch.Generator(device=cuda_device).manual_seed(10), env.reset(), 2)
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        assert env.compiled
+        g = torch.Generator(device=cuda_device).manual_seed(10)
+        first = env.rollout(g, env.reset(), steps)  # runs eagerly and captures
+        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+        with _no_host_sync():
+            r = env.rollout(g, first.final_states, steps)
+        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+        assert (counted[0] - launches[0], counted[1] - launches[1]) == (steps + 1, steps)
+        acts = iter(r.actions.cpu())
+        rc = rollout(torch.Generator(), first.final_states.cpu(), steps, cfg, policy_fn=lambda _g, _s: next(acts))
+    finally:
+        tflood.set_flood_route(previous)
+    assert not r.invalid.any() and (r.rewards != 0).any()
+    for field in ("final_states", "rewards", "dones"):
+        assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
 
 
 def test_a_capture_that_syncs_raises_and_leaves_the_generator_usable(cuda_device):
