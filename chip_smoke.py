@@ -231,16 +231,30 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      replay, 64 min/max and 32 claim launches and no host sync in a replay,
      ms per simulation of both; (d) 25x25 (which the bundle word cannot
      hold), B = 4096: a replayed 64-step window equal to the eager one bit
-     for bit with no host sync, and its first 64 envs equal to a CPU replay.
+     for bit with no host sync, and its first 64 envs equal to a CPU replay;
+ 28. boards over 32x32 on the minmax route (the min/max and claim kernels
+     label them a block a board, up to 181x181): (a) both kernels equal to
+     their plain versions on every cell, on random boards at N = 33 ... 181
+     (both sides of where a board's int32 arrays stop fitting in shared
+     memory), the shaped boards at 33, 64, 134, 181 and odd batches at
+     181; (b) ``BatchGoEnv.rollout`` at 64x64 B = 1024 (1024 warmup steps),
+     (c) at 181x181 B = 128 (512 warmup steps, 16-step windows): compiled
+     against eager bit for bit over two replays, no host sync in a replay,
+     65/17 min/max and 64/16 claim launches a window, a B = 16 / B = 2 slice
+     equal to a CPU replay, env-steps/s of both forms in turns, busy shares,
+     both kernels timed on the window's boards beside their byte bounds and
+     plain times, ``score.areas`` against the CPU; (d) ``GoEnv`` (torch on
+     the card) and ``gogame.next_state`` at 37x37 against the CPU.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
 20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
-measurement layer, 25-26 the compiled forms, 27 the minmax route compiled;
+measurement layer, 25-26 the compiled forms, 27 the minmax route compiled,
+28 boards over 32x32;
 the launch counts are set to 0 before the search, each match, the training
 run, the ``gogame`` game, the ``GoEnv`` games, phase 20, each sharded
 rollout of 22a, each ablation's windows, each layout's search, phase 25's
 compiled windows and phase 26's searches, and read after; phase 27 reads
-them around each path it drives.  After phase 15, a replay of the recipe's
+them around each path it drives, as does phase 28.  After phase 15, a replay of the recipe's
 size takes one add of more rows than its capacity (81,920 into 65,536):
 every slot must hold one whole row, the last 65,536 in order.
 The line before the nvidia-smi line is a JSON object with the three kernels'
@@ -251,6 +265,7 @@ exits non-zero without printing a result when CUDA is unavailable.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -339,18 +354,18 @@ def component_case(dev, n):
     return (f"components N={n}", a.to(dev).contiguous(), b.to(dev).contiguous())
 
 
-def board_cases(dev, gen, sizes, shaped_sizes):
-    """(name, mover, opp) cases: 1237 random boards at each of ``sizes``;
+def board_cases(dev, gen, sizes, shaped_sizes, odd=19, batch=1237):
+    """(name, mover, opp) cases: ``batch`` random boards at each of ``sizes``;
     serpentine, staircase and component boards at each of ``shaped_sizes``;
-    and, at N = 19, one board, 17 boards and a contiguous slice whose address
-    is no multiple of 16."""
+    and, at N = ``odd``, one board, 17 boards and a contiguous slice whose
+    address is no multiple of 16."""
     cases = []
     for n in sizes:
-        r = torch.rand((1237, n, n), generator=gen, device=dev)
-        dens = torch.rand((1237, 1, 1), generator=gen, device=dev) * 0.9
+        r = torch.rand((batch, n, n), generator=gen, device=dev)
+        dens = torch.rand((batch, 1, 1), generator=gen, device=dev) * 0.9
         a = r < dens / 2
         b = (r >= dens / 2) & (r < dens)
-        cases.append((f"random N={n} B=1237", a.contiguous(), b.contiguous()))
+        cases.append((f"random N={n} B={batch}", a.contiguous(), b.contiguous()))
     for maker in (serpentine, staircase):
         for n in shaped_sizes:
             mask = maker(n).to(dev)
@@ -360,11 +375,11 @@ def board_cases(dev, gen, sizes, shaped_sizes):
                           stack(mask, none, ~mask, mask),
                           stack(none, mask, none, ~mask & (torch.arange(n * n, device=dev).view(n, n) % 3 == 0))))
     cases += [component_case(dev, n) for n in shaped_sizes]
-    _, a, b = next(c for c in cases if c[0].startswith("random N=19"))
+    _, a, b = next(c for c in cases if c[0].startswith(f"random N={odd} "))
     if a[3:].data_ptr() % 16 == 0:
         fail("the sliced planes are aligned; the case would not try a misaligned address")
-    cases += [("random N=19 B=1", a[:1], b[:1]), ("random N=19 B=17", a[:17], b[:17]),
-              ("random N=19 B=1234 misaligned", a[3:], b[3:])]
+    cases += [(f"random N={odd} B=1", a[:1], b[:1]), (f"random N={odd} B=17", a[:17], b[:17]),
+              (f"random N={odd} B={batch - 3} misaligned", a[3:], b[3:])]
     return cases
 
 
@@ -2215,15 +2230,10 @@ def minmax_compiled_path(dev, states, libs):
     from gymgo_tpu_torch.utils.graphs import eager
 
     t_phase = time.perf_counter()
-    names = ("bundle", "minmax", "claim")
     fields = ("actions", "rewards", "dones", "invalid", "final_states")
     B, N, WINDOW, REPEATS = states.shape[0], states.shape[-1], 64, 3
-
-    def counts():
-        return {name: lib.launches for name, lib in zip(names, libs)}
-
-    def launched(before):
-        return {name: lib.launches - before[name] for name, lib in zip(names, libs)}
+    counts = functools.partial(kernel_counts, libs)
+    launched = functools.partial(kernels_launched, libs)
 
     def same(x, y, what):
         for field in fields:
@@ -2248,8 +2258,7 @@ def minmax_compiled_path(dev, states, libs):
     kernel_ms = time_ms(lambda: cf.claim_flood_cuda(a, b), 200)
     plain_ms = time_ms(lambda: claim_flood_plain(a, b), 5)
     kernel_ms_2 = time_ms(lambda: cf.claim_flood_cuda(a, b), 200)
-    for lib, n in zip(libs, before.values()):
-        lib.launches = n
+    restore_counts(libs, before)
     # 2 bytes in (two uint8 planes), 1 out (one uint8 plane) per cell
     bound_ms = (2 + 1) * B * N * N / H100_BYTES_PER_S * 1e3
     print(f"[27a claim kernel vs plain] {len(cases)} cases bit-exact on every cell (max |diff| {err}); 19x19 "
@@ -2393,6 +2402,231 @@ def minmax_compiled_path(dev, states, libs):
         "max_abs_err": err, "ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms, "bound_ms": bound_ms,
         "window": window_launches[-1], "search": search_launches, "window_25x25": launches25,
     }
+
+
+def big_boards_path(dev, libs):
+    """Phase 28: boards over 32x32 on the minmax route, which the min/max and
+    claim kernels label a block a board up to 181x181.  ``libs`` are the
+    bundle, min/max and claim kernels' libraries.  Sets the minmax route and
+    leaves the default one.  Returns each kernel's check, times, bounds and
+    plain times at 64x64 B = 1024 and 181x181 B = 128, and the launches of
+    each path."""
+    from gymgo_tpu_torch import gogame
+    from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
+    from gymgo_tpu_torch.core import flood as tflood
+    from gymgo_tpu_torch.core import score as tscore
+    from gymgo_tpu_torch.core.flood import claim_flood_plain, minmax_flood_plain
+    from gymgo_tpu_torch.env import GoEnv
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
+    from gymgo_tpu_torch.ops import claim_flood as cf
+    from gymgo_tpu_torch.ops import minmax_flood as mf
+    from gymgo_tpu_torch.utils.graphs import eager
+
+    t_phase = time.perf_counter()
+    fields = ("actions", "rewards", "dones", "invalid", "final_states")
+    counts = functools.partial(kernel_counts, libs)
+    launched = functools.partial(kernels_launched, libs)
+
+    # (a) both kernels against their plain versions, bit for bit on every cell: random boards on both sides
+    # of where a board's int32 arrays stop fitting in a block's shared memory (133/134 for the min/max
+    # flood, 160/161 for the claim flood on an H100; 124/125 and 145/146 with a place table beside them),
+    # up to 181x181, 301 a size (more than the 132 boards an H100 labels at once at 181x181); the shaped
+    # boards (the longest runs and chains, which the plain versions take thousands of rounds over) at four
+    # of the sizes (the card tests take them at all); odd batches at 181
+    SIZES = (33, 37, 45, 63, 64, 65, 100, 124, 125, 133, 134, 145, 146, 160, 161, 181)
+    cases = board_cases(dev, torch.Generator(device=dev).manual_seed(SEED + 28), SIZES, (33, 64, 134, 181),
+                        odd=181, batch=301)
+    before = counts()
+    err = {"minmax": 0, "claim": 0}
+    t0 = time.perf_counter()
+    for name, ca, cb in cases:
+        kmn, kmx = mf.minmax_flood_cuda(ca, cb)
+        kc = cf.claim_flood_cuda(ca, cb)
+        pmn, pmx = minmax_flood_plain(ca, cb)
+        pc = claim_flood_plain(ca, cb)
+        torch.cuda.synchronize()
+        for k, p in ((kmn, pmn), (kmx, pmx)):
+            err["minmax"] = max(err["minmax"], int((k.to(torch.int32) - p.to(torch.int32)).abs().max()))
+        err["claim"] = max(err["claim"], int((kc.to(torch.int32) - pc.to(torch.int32)).abs().max()))
+        if not (torch.equal(kmn, pmn) and torch.equal(kmx, pmx)):
+            fail(f"28a: minmax kernel != plain on {name}: {int(((kmn != pmn) | (kmx != pmx)).sum())} cells differ")
+        if not torch.equal(kc, pc):
+            fail(f"28a: claim kernel != plain on {name}: {int((kc != pc).sum())} cells differ")
+    restore_counts(libs, before)
+    print(f"[28a big-board kernels vs plain] {len(cases)} cases at N = {', '.join(map(str, SIZES))}: min/max and "
+          f"claim kernels bit-exact on every cell (max |diff| {err}); {time.perf_counter() - t0:.1f} s", flush=True)
+
+    out = {"max_abs_err": err}
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        # (b) 64x64 B = 1024 (cell 10) and (c) 181x181 B = 128: the compiled window from fresh boards (the first
+        # call runs eagerly and captures), replays to warm up, then two replays against the eager window from the
+        # same boards and seed, bit for bit, with no host sync in a replay; a slice replayed on the CPU; both
+        # forms timed in turns and profiled; both kernels timed on the last boards
+        for tag, N, B, W, WARM, SLICE in (("28b", 64, 1024, 64, 1024, 16), ("28c", 181, 128, 16, 512, 2)):
+            t_size = time.perf_counter()
+            cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+            env = BatchGoEnv(cfg, device=dev)
+            if not env.compiled:
+                fail(f"{tag}: BatchGoEnv is not compiled at {N}x{N} on the minmax route")
+            g = torch.Generator(device=dev).manual_seed(SEED + 280 + N)
+            t0 = time.perf_counter()
+            s = env.rollout(g, env.reset(), W).final_states
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(WARM // W - 1):
+                s = env.rollout(g, s, W).final_states
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            gc, ge = (torch.Generator(device=dev).manual_seed(SEED + 281 + N) for _ in range(2))
+            window_launches = []
+            for i in range(2):
+                start = s
+                before = counts()
+                with no_host_sync():
+                    got = env.rollout(gc, start, W)
+                window_launches.append(launched(before))
+                with eager():
+                    want = env.rollout(ge, start, W)
+                for field in fields:
+                    if not torch.equal(getattr(got, field), getattr(want, field)):
+                        fail(f"{tag}: the {N}x{N} compiled window differs from the eager one on {field} at replay {i}")
+                s = got.final_states
+            expected = {"bundle": 0, "minmax": W + 1, "claim": W}
+            if any(x != expected for x in window_launches):
+                fail(f"{tag}: launches a replayed {N}x{N} window {window_launches}, expected {expected}")
+            if not torch.equal(gc.get_state(), ge.get_state()):
+                fail(f"{tag}: the compiled window left its generator elsewhere than the eager one")
+            if got.invalid.any() or not (got.rewards != 0).any():
+                fail(f"{tag}: an invalid action, or no reward read from the claimed areas, in the {N}x{N} window")
+            acts = iter(got.actions[:, :SLICE].cpu())
+            cpu = rollout(torch.Generator(), start[:SLICE].cpu(), W, EnvConfig(board_size=N, batch_size=SLICE,
+                          reward_method=HEURISTIC, auto_reset=True), policy_fn=lambda _g, _s: next(acts))
+            rows = {"final_states": got.final_states[:SLICE], "rewards": got.rewards[:, :SLICE],
+                    "dones": got.dones[:, :SLICE]}
+            for field, x in rows.items():
+                if not torch.equal(x.cpu(), getattr(cpu, field)):
+                    fail(f"{tag}: the {N}x{N} window's first {SLICE} envs differ from the CPU replay on {field}")
+            torch.cuda.synchronize()
+            rates = {"compiled": [], "eager": []}
+            for _ in range(3):
+                for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+                    t0 = time.perf_counter()
+                    r = _in(ctx, env.rollout, gc, s, W)
+                    checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
+                    rates[form].append(B * W / (time.perf_counter() - t0))
+                    if not math.isfinite(checksum):
+                        fail(f"{tag}: checksum not finite: {checksum}")
+            busy = {}
+            for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+                wall_us, rows = device_profile(lambda: _in(ctx, env.rollout, gc, s, W))
+                busy_us = sum(r[0] for r in rows)
+                if busy_us <= 0:
+                    fail(f"{tag}: the profiler saw no device time in the {form} window")
+                busy[form] = (wall_us / W, busy_us / W, 100 * busy_us / wall_us, sum(r[1] for r in rows) / W)
+            stones = s[:, :2].to(torch.int32).sum().item() / B
+            for form in ("compiled", "eager"):
+                wall, dev_us, share, kernels = busy[form]
+                print(f"[{tag} {N}x{N} minmax route] B={B}, {W}-step windows, {form}: {rates_text(rates[form])}; "
+                      f"profiled {wall:.1f} us/step wall, device busy {dev_us:.1f} us/step ({share:.1f}% busy), "
+                      f"{kernels:.1f} kernels/step", flush=True)
+
+            # the two kernels on the window's last boards, by CUDA events, beside their byte bounds
+            a, b = boards_of(s)
+            before = counts()
+            mm = [time_ms(lambda: mf.minmax_flood_cuda(a, b), 100)]
+            cl = [time_ms(lambda: cf.claim_flood_cuda(a, b), 100)]
+            mm_plain = time_ms(lambda: minmax_flood_plain(a, b), 3)
+            cl_plain = time_ms(lambda: claim_flood_plain(a, b), 3)
+            mm.append(time_ms(lambda: mf.minmax_flood_cuda(a, b), 100))
+            cl.append(time_ms(lambda: cf.claim_flood_cuda(a, b), 100))
+            restore_counts(libs, before)
+            kmn, kmx = mf.minmax_flood_cuda(a, b)
+            pmn, pmx = minmax_flood_plain(a, b)
+            if not (torch.equal(kmn, pmn) and torch.equal(kmx, pmx) and torch.equal(cf.claim_flood_cuda(a, b),
+                                                                                    claim_flood_plain(a, b))):
+                fail(f"{tag}: a kernel != plain on the {N}x{N} window's boards")
+            cells = B * N * N
+            # 2 bytes in (two uint8 planes) per cell; 4 out (two int16 planes) for min/max, 1 (uint8) for claims
+            mm_bound, cl_bound = (2 + 4) * cells / H100_BYTES_PER_S * 1e3, (2 + 1) * cells / H100_BYTES_PER_S * 1e3
+            print(f"[{tag} {N}x{N} kernels] B={B} ({cells} cells, {stones:.1f} stones a board): min/max kernel "
+                  f"{mm[0]:.4f} ms (again {mm[1]:.4f}), plain {mm_plain:.4f} ms, byte bound {mm_bound:.6f} ms; claim "
+                  f"kernel {cl[0]:.4f} ms (again {cl[1]:.4f}), plain {cl_plain:.4f} ms, byte bound {cl_bound:.6f} ms",
+                  flush=True)
+            (graph,) = env._rollout.graphs.values()
+            print(f"[{tag} {N}x{N} compiled] == eager bit for bit over 2 replays (actions, rewards, dones, invalid, "
+                  f"final states, the generator), 0 host syncs in a replay (sync debug mode error), launches a window "
+                  f"{window_launches[-1]}; its first {SLICE} envs == the CPU replay; first window (eager, then the "
+                  f"capture) {first_s:.2f} s, {WARM - W} warmup steps replayed in {warm_s:.2f} s; graph {graph.nodes} "
+                  f"nodes; {time.perf_counter() - t_size:.1f} s", flush=True)
+            out[N] = {"minmax_ms": min(mm), "minmax_plain_ms": mm_plain, "minmax_bound_ms": mm_bound,
+                      "claim_ms": min(cl), "claim_plain_ms": cl_plain, "claim_bound_ms": cl_bound,
+                      "window": window_launches[-1]}
+
+            # the area score of the window's boards on the card against the CPU (a slice at 181: the CPU's
+            # flood by rounds crosses the board's empty region)
+            k = B if N <= 64 else 8
+            for got_area, want_area in zip(tscore.areas(s), tscore.areas(s[:k].cpu())):
+                if not torch.equal(got_area[:k].cpu(), want_area):
+                    fail(f"{tag}: score.areas at {N}x{N}: the card and the CPU differ")
+
+        # (d) GoEnv and gogame at 37x37 on the card (compiled, a stateless step a move) against the CPU
+        MOVES = 300
+        t0 = time.perf_counter()
+        np.random.seed(SEED + 28)
+        before = counts()
+        envs = [GoEnv(37, reward_method="heuristic", backend="torch", device=dev),
+                GoEnv(37, reward_method="heuristic", backend="torch", device="cpu")]
+        env_moves = 0
+        for t in range(MOVES):
+            act = envs[0].uniform_random_action()
+            (obs, reward, done, info), (o, r, d, i) = (e.step(act) for e in envs)
+            env_moves += 1
+            if not (np.array_equal(o, obs) and r == reward and d == done
+                    and np.array_equal(i["invalid_moves"], info["invalid_moves"])):
+                fail(f"28d: GoEnv 37x37 on the card differs from the CPU at move {t}")
+            if done:
+                break
+        env_launches = launched(before)
+        before = counts()
+        state = gogame.init_state(37)
+        for t in range(MOVES):
+            act = gogame.random_action(state)
+            card = gogame.next_state(state, act, device=dev)
+            if not np.array_equal(card, gogame.next_state(state, act, device="cpu")):
+                fail(f"28d: gogame.next_state at 37x37: the card and the CPU differ at move {t}")
+            state = card
+        gogame_launches = launched(before)
+        if env_launches["minmax"] < 2 * env_moves or gogame_launches["minmax"] < 2 * MOVES or \
+                env_launches["bundle"] or gogame_launches["bundle"]:
+            fail(f"28d: launches GoEnv {env_launches}, gogame {gogame_launches}")
+        print(f"[28d 37x37] GoEnv (torch on the card, compiled) == torch on the CPU over {env_moves} moves, "
+              f"launches {env_launches}; gogame.next_state == CPU over {MOVES} moves, launches {gogame_launches}; "
+              f"score.areas at 64x64 and 181x181 == CPU; {time.perf_counter() - t0:.1f} s; phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        out.update(go_env=env_launches, gogame=gogame_launches)
+    finally:
+        tflood.set_flood_route(previous)
+    return out
+
+
+def kernel_counts(libs):
+    """The launch counts of the bundle, min/max and claim libraries ``libs``,
+    by name."""
+    return {name: lib.launches for name, lib in zip(("bundle", "minmax", "claim"), libs)}
+
+
+def kernels_launched(libs, before):
+    """The launches of each of ``libs`` since ``kernel_counts`` gave ``before``."""
+    return {name: n - before[name] for name, n in kernel_counts(libs).items()}
+
+
+def restore_counts(libs, before):
+    """Set ``libs``' counts back to ``before``: the launches in between only
+    held a kernel against its plain version or timed it."""
+    for lib, n in zip(libs, before.values()):
+        lib.launches = n
 
 
 def _in(ctx, fn, *args):
@@ -2632,6 +2866,7 @@ def main() -> int:
     compiled_launches = phase("25", compiled_path, dev, states, *libs)
     compiled_search_launches = phase("26", compiled_search_path, dev, states, *libs)
     claim = phase("27", minmax_compiled_path, dev, states, built)
+    big = phase("28", big_boards_path, dev, built)
     print(f"[seconds] each phase's: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
 
@@ -2674,11 +2909,22 @@ def main() -> int:
         "launches_compiled_minmax_window": claim["window"]["minmax"],
         "launches_compiled_minmax_search": claim["search"]["minmax"],
         "launches_compiled_25x25_window": claim["window_25x25"]["minmax"],
+        "launches_compiled_64x64_window": big[64]["window"]["minmax"],
+        "launches_compiled_181x181_window": big[181]["window"]["minmax"],
+        "launches_go_env_37x37": big["go_env"]["minmax"],
+        "launches_gogame_37x37": big["gogame"]["minmax"],
         "max_abs_err": mm_err,
+        "max_abs_err_over_32x32": big["max_abs_err"]["minmax"],
         "ms": min(mm_ms, mm_ms_2),
         "plain_ms": mm_plain_ms,
         # 2 bytes in (two uint8 planes), 4 out (two int16 planes) per cell
         "bound_ms": bound_ms,
+        "ms_64x64": big[64]["minmax_ms"],
+        "plain_ms_64x64": big[64]["minmax_plain_ms"],
+        "bound_ms_64x64": big[64]["minmax_bound_ms"],
+        "ms_181x181": big[181]["minmax_ms"],
+        "plain_ms_181x181": big[181]["minmax_plain_ms"],
+        "bound_ms_181x181": big[181]["minmax_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }, {
@@ -2691,11 +2937,22 @@ def main() -> int:
         "launches_minmax_route_eager": claim_launches,
         "launches_compiled_minmax_search": claim["search"]["claim"],
         "launches_compiled_25x25_window": claim["window_25x25"]["claim"],
+        "launches_compiled_64x64_window": big[64]["window"]["claim"],
+        "launches_compiled_181x181_window": big[181]["window"]["claim"],
+        "launches_go_env_37x37": big["go_env"]["claim"],
+        "launches_gogame_37x37": big["gogame"]["claim"],
         "max_abs_err": claim["max_abs_err"],
+        "max_abs_err_over_32x32": big["max_abs_err"]["claim"],
         "ms": claim["ms"],
         "plain_ms": claim["plain_ms"],
         # 2 bytes in (two uint8 planes), 1 out (one uint8 plane) per cell
         "bound_ms": claim["bound_ms"],
+        "ms_64x64": big[64]["claim_ms"],
+        "plain_ms_64x64": big[64]["claim_plain_ms"],
+        "bound_ms_64x64": big[64]["claim_bound_ms"],
+        "ms_181x181": big[181]["claim_ms"],
+        "plain_ms_181x181": big[181]["claim_plain_ms"],
+        "bound_ms_181x181": big[181]["claim_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]}))

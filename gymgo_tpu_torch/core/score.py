@@ -6,7 +6,7 @@ white; a region counts for a colour iff it touches only that colour.  On CUDA
 tensors the claims are read from the bundle word of the hand kernel, as the
 step reads them, with no host sync, whatever the flood route (the JAX package
 scores by one flood on every route too); boards too large for the bundle word
-(N*N > 511, up to 32x32) take the claim flood's hand kernel, with no host sync
+(N*N > 511, up to 181x181) take the claim flood's hand kernel, with no host sync
 either.  CPU tensors take the claim flood's plain version, which checks its
 convergence on the host.
 """

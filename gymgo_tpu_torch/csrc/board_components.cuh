@@ -1,5 +1,5 @@
-// Connected-component reductions over batches of Go boards: what the two
-// flood kernels (bundle_flood.cu, minmax_flood.cu) share.
+// Connected-component reductions over batches of Go boards: what the three
+// flood kernels (bundle_flood.cu, minmax_flood.cu, claim_flood.cu) share.
 //
 // Both floods spread a per-cell seed word between 4-adjacent cells of the same
 // class until nothing changes.  The gates are symmetric and the operators (OR;
@@ -22,9 +22,11 @@
 //      "gated to my left" gives every lane the word of run starts among the
 //      32 cells of its step; the highest start at or below its own bit (or,
 //      where a run crosses into the word, the highest of the word before:
-//      N <= 32, so there is one) is the head of its run, which it takes as
-//      its parent.  Of the vertical pairs only the first of each stretch of
-//      neighbouring pairs that join the same two runs goes into a dense list;
+//      there is one, since at N <= 32 any 32 cells in a row hold a cell of
+//      column 0, whose left neighbour is the border) is the head of its run,
+//      which it takes as its parent.  Of the vertical pairs only the first of
+//      each stretch of neighbouring pairs that join the same two runs goes
+//      into a dense list;
 //   3. union of the listed pairs, 32 at a time: chase both cells to their
 //      roots, halving the path on the way, and atomicMin the larger root's
 //      parent down to the smaller; if another lane moved it first, go on from
@@ -44,6 +46,24 @@
 // shared memory with bulk asynchronous copies (cp.async.bulk on an mbarrier)
 // ahead of the labelling was built and measured within 1% of this (PERF.md),
 // and was left out.
+//
+// Boards over 32x32 (board_kernel<Op, T>, which launch_components picks for
+// an Op whose launcher allows them): one board to a block of up to 32 warps,
+// the same six passes with a block barrier between them.  Pass 2 hands whole
+// rows to warps.  A run never leaves its row (a border cell closes each
+// row), so a warp carries its row's last run start from one 32-cell step to
+// the next, across steps that one run fills and that have no start of their
+// own.  The vertical pairs go into the list through a shared counter.  All
+// arrays stay in shared memory: int32 where they fit (on an H100 up to
+// 133x133 for the min/max flood, 160x160 for the claim flood), else int16
+// (T = int16_t), whose atomics are compare-and-swap loops on the 32-bit
+// word that holds the cell.  int16 holds every index and word up to 181x181
+// (N*N = 32,761 <= 32,767), where the JAX package's int16 indices stop too;
+// the min/max flood's arrays then take 229,936 of the 232,448 bytes a block
+// may have.  A workspace in device memory would have kept the int32 atomics
+// but put every step of the union-find's chases behind the L2 cache's
+// latency, and made the wrapper allocate it; the int16 arrays keep every
+// access in shared memory.
 
 #pragma once
 
@@ -60,8 +80,63 @@ constexpr int kThreads = kWarps * 32;
 // to; its shared memory takes as many at 19x19.
 constexpr int kBlocksPerSM = 3;
 
+// The largest boards a warp and a block label.
+constexpr int kLaneCells = 32 * 32;     // 32 cells a lane
+constexpr int kBoardCells = 181 * 181;  // int16 indices and words
+static_assert(kBoardCells <= 32767, "int16 holds every cell index and N*N");
+static_assert((181 + 2) * (181 + 1) <= 65535, "uint16_t holds every place of a bordered board");
+constexpr int kBoardWarps = 32;  // the most warps a block gives one board
+
 // class bits of a cell: mover, opp, empty, and the border around the board
 constexpr uint8_t kClsA = 1, kClsB = 2, kClsE = 4, kClsBorder = 8;
+
+// ------------------------------------------------------------------ atomics
+
+// The union-find's links and the reductions, on int32 words (the hardware's
+// atomics) and on int16 words (a compare-and-swap loop on the aligned 32-bit
+// word that holds the cell, which writes the other half back as it saw it:
+// a change to that half makes the swap fail and the loop go round again).
+// Each returns the old value, as the hardware's atomics do.
+__device__ __forceinline__ int atomic_min(int* at, int v) { return atomicMin(at, v); }
+__device__ __forceinline__ int atomic_max(int* at, int v) { return atomicMax(at, v); }
+__device__ __forceinline__ int atomic_or(int* at, int v) { return atomicOr(at, v); }
+
+struct Min {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a < b ? a : b; }
+};
+struct Max {
+  __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+
+// at - half keeps the pointer's provenance, so a shared-memory cell stays a
+// shared-memory access
+__device__ __forceinline__ int half_of(const int16_t* at) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(at) >> 1 & 1);
+}
+
+template <class F>
+__device__ __forceinline__ int atomic16(int16_t* at, int v, F combine) {
+  const int half = half_of(at), shift = 16 * half;
+  unsigned* word = reinterpret_cast<unsigned*>(at - half);
+  unsigned seen = *reinterpret_cast<volatile unsigned*>(word);
+  for (;;) {
+    const int old = static_cast<int16_t>(seen >> shift);
+    const int want = combine(old, v);
+    if (want == old) return old;
+    const unsigned next = (seen & ~(0xFFFFu << shift)) | (static_cast<unsigned>(want) & 0xFFFFu) << shift;
+    const unsigned got = atomicCAS(word, seen, next);
+    if (got == seen) return old;
+    seen = got;
+  }
+}
+
+__device__ __forceinline__ int atomic_min(int16_t* at, int v) { return atomic16(at, v, Min()); }
+__device__ __forceinline__ int atomic_max(int16_t* at, int v) { return atomic16(at, v, Max()); }
+__device__ __forceinline__ int atomic_or(int16_t* at, int v) {
+  const int half = half_of(at), shift = 16 * half;
+  unsigned* word = reinterpret_cast<unsigned*>(at - half);
+  return static_cast<int16_t>(atomicOr(word, (static_cast<unsigned>(v) & 0xFFFFu) << shift) >> shift);
+}
 
 // ---------------------------------------------------------------- union-find
 
@@ -69,21 +144,24 @@ constexpr uint8_t kClsA = 1, kClsB = 2, kClsE = 4, kClsBorder = 8;
 // every step of a chase is a real load.  parent[x] <= x always, so a chase
 // ends, and the root of a component is its least cell.  A chase halves the
 // path behind it, with atomicMin: a parent then only ever falls, so once a
-// cell has been given its root it keeps it.
-__device__ __forceinline__ int find_root(int* parent, int i) {
-  const volatile int* at = parent;
+// cell has been given its root it keeps it.  T is int, or int16_t on a
+// board whose int32 arrays do not fit in shared memory.
+template <class T>
+__device__ __forceinline__ int find_root(T* parent, int i) {
+  const volatile T* at = parent;
   int p = at[i];
   while (p != i) {
     const int above = at[p];
     if (above == p) return p;
-    atomicMin(&parent[i], above);
+    atomic_min(&parent[i], above);
     i = above;
     p = at[i];
   }
   return i;
 }
 
-__device__ __forceinline__ void unite(int* parent, int a, int b) {
+template <class T>
+__device__ __forceinline__ void unite(T* parent, int a, int b) {
   a = find_root(parent, a);
   b = find_root(parent, b);
   while (a != b) {
@@ -92,7 +170,7 @@ __device__ __forceinline__ void unite(int* parent, int a, int b) {
       a = b;
       b = t;
     }
-    const int old = atomicMin(&parent[a], b);
+    const int old = atomic_min(&parent[a], b);
     if (old == a) return;  // a was a root and now hangs under b
     // a already hung under old < a, and now hangs under the lesser of old and
     // b: those two still have to be joined.
@@ -256,45 +334,236 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   }
 }
 
-// cudaSuccess, or why the kernel could not be launched.  Sizes the grid from
-// the card: as many blocks as are resident at once.
-template <class Op>
-cudaError_t launch_components(const void* plane_a, const void* plane_b, typename Op::Out out,
-                              int batch, int n, cudaStream_t stream) {
-  if (batch <= 0) return cudaSuccess;
-  auto kernel = components_kernel<Op>;
-  // What the card offers, asked once for each device.
+// ------------------------------------------------------- a board to a block
+
+// Where things lie in the dynamic shared memory of a block that labels one
+// board at a time: parent, then Op::kWords acc arrays (`pitch` entries of
+// `index_bytes` each), the bordered classes, and the pair list's length.
+struct BoardLayout {
+  int pitch, cls_bytes, count_at, total;
+  __host__ __device__ BoardLayout(int n, int words, int index_bytes) {
+    pitch = (n * n + 31) & ~31;
+    cls_bytes = (bordered_cells(n) + 31) & ~31;
+    count_at = index_bytes * pitch * (1 + words) + cls_bytes;
+    total = count_at + 16;
+  }
+};
+
+// The warps a block gives a board of m cells: about 8 cells a thread, 4 warps
+// at least, kBoardWarps at most.
+inline int board_warps(int m) {
+  const int warps = (m + 255) / 256;
+  return warps < 4 ? 4 : warps > kBoardWarps ? kBoardWarps : warps;
+}
+
+// Cell i's place in the bordered board: i + i / n + n + 1, the quotient by a
+// multiply with `inverse` = 2^32 / n rounded up, exact while i * n < 2^32.
+__device__ __forceinline__ int place_of(int i, unsigned inverse, int row) {
+  return i + static_cast<int>(__umulhi(static_cast<unsigned>(i), inverse)) + row;
+}
+
+// The passes of label_board on one board with the whole block; the arrays
+// are of T (int or int16_t), the block strides over the boards.
+template <class Op, class T>
+__global__ void __launch_bounds__(kBoardWarps * 32)
+    board_kernel(const uint8_t* __restrict__ plane_a, const uint8_t* __restrict__ plane_b,
+                 typename Op::Out out, int batch, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m = n * n, row = n + 1, tid = threadIdx.x, threads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, warps = threads >> 5;
+  const unsigned below = (1u << lane) - 1, at_or_below = below | 1u << lane;
+  const unsigned inverse = 0xFFFFFFFFu / n + 1;
+  const BoardLayout at(n, Op::kWords, sizeof(T));
+  T* parent = reinterpret_cast<T*>(smem);
+  T* acc = parent + at.pitch;
+  uint8_t* cls = reinterpret_cast<uint8_t*>(acc + Op::kWords * at.pitch);
+  int* count = reinterpret_cast<int*>(smem + at.count_at);
+  uint16_t* pairs = reinterpret_cast<uint16_t*>(acc);  // the list lies in acc until pass 4
+
+  for (int j = tid; j < at.cls_bytes; j += threads) cls[j] = kClsBorder;
+  __syncthreads();
+
+  for (int board = blockIdx.x; board < batch; board += gridDim.x) {
+    const size_t base = static_cast<size_t>(board) * m;
+    // 1. classes.  The last board's pass 6 reads no class and no count.
+    for (int i = tid; i < m; i += threads) {
+      cls[place_of(i, inverse, row)] = Op::cell_class(plane_a[base + i] != 0, plane_b[base + i] != 0);
+    }
+    if (tid == 0) *count = 0;
+    __syncthreads();
+
+    // 2. runs, a warp a row, and the vertical pairs to unite
+    for (int r = warp; r < n; r += warps) {
+      int head = 0;  // the column of the row's last run start so far
+      unsigned ups_before = 0;
+      for (int first = 0; first < n; first += 32) {
+        const int col = first + lane, i = r * n + col;
+        uint8_t c = 0, to_left = 0;
+        bool up = false, left = false;
+        if (col < n) {
+          const int p = (r + 1) * row + col;
+          c = cls[p];
+          to_left = cls[p - 1];
+          up = (c & cls[p - row]) != 0;
+          left = (c & to_left) != 0;
+        }
+        const unsigned starts = ~__ballot_sync(0xFFFFFFFFu, left);
+        const unsigned ups = __ballot_sync(0xFFFFFFFFu, up);
+        bool pair = false;
+        if (col < n) {
+          const unsigned mine = starts & at_or_below;
+          parent[i] = static_cast<T>(r * n + (mine ? first + 31 - __clz(mine) : head));
+          const bool left_is_pair = lane ? (ups >> (lane - 1) & 1) : (ups_before >> 31);
+          const bool same_runs = left && left_is_pair && to_left == c && (c & (c - 1)) == 0;
+          pair = up && !same_runs;
+        }
+        const unsigned listed = __ballot_sync(0xFFFFFFFFu, pair);
+        int slot = 0;
+        if (lane == 0 && listed) slot = atomicAdd(count, __popc(listed));
+        slot = __shfl_sync(0xFFFFFFFFu, slot, 0);
+        if (pair) pairs[slot + __popc(listed & below)] = static_cast<uint16_t>(i);
+        // only a row's last step has lanes past its end, and no step follows it
+        if (starts) head = first + 31 - __clz(starts);
+        ups_before = ups;
+      }
+    }
+    __syncthreads();
+
+    // 3. unions, a stretch of the list a thread
+    const int listed = *count;
+    const int each = (listed + threads - 1) / threads;
+    const int end = min(listed, (tid + 1) * each);
+    for (int j = tid * each; j < end; ++j) {
+      const int i = pairs[j];
+      unite(parent, i, i - n);
+    }
+    __syncthreads();
+
+    // 4. seeds
+    for (int i = tid; i < m; i += threads) {
+      const int p = place_of(i, inverse, row);
+      const uint8_t nc[4] = {cls[p - row], cls[p + row], cls[p - 1], cls[p + 1]};
+      const int nbr[4] = {i - n, i + n, i - 1, i + 1};
+      int seed[Op::kWords];
+      Op::seed(cls[p], nc, nbr, m, seed);
+#pragma unroll
+      for (int w = 0; w < Op::kWords; ++w) acc[w * at.pitch + i] = static_cast<T>(seed[w]);
+    }
+    __syncthreads();
+
+    // 5. roots and the reduction into them
+    for (int i = tid; i < m; i += threads) {
+      const int root = find_root(parent, i);
+      if (root != i) {
+        atomic_min(&parent[i], root);
+#pragma unroll
+        for (int w = 0; w < Op::kWords; ++w) Op::reduce(w, &acc[w * at.pitch + root], acc[w * at.pitch + i], m);
+      }
+    }
+    __syncthreads();
+
+    // 6. output.  The next board's pass 1 writes what this pass does not read.
+    for (int i = tid; i < m; i += threads) {
+      const int root = parent[i];
+      int word[Op::kWords];
+#pragma unroll
+      for (int w = 0; w < Op::kWords; ++w) word[w] = acc[w * at.pitch + root];
+      Op::store(out, base + i, word);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launching
+
+// What the card offers, asked once for each device.
+struct Card {
+  int device = -1, sms = 0, block_bytes = 0;
+};
+
+inline cudaError_t current_card(Card* card) {
   static std::mutex lock;
-  static int known = -1, sms = 0, block_bytes = 0;
-  static int sized_for = -1, resident = 0;
+  static Card known;
   std::lock_guard<std::mutex> guard(lock);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device != known) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (device != known.device) {
+    Card asked;
+    err = cudaDeviceGetAttribute(&asked.sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&block_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, block_bytes);
+      err = cudaDeviceGetAttribute(&asked.block_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err != cudaSuccess) return err;
-    known = device;
-    sized_for = -1;
+    asked.device = device;
+    known = asked;
   }
+  *card = known;
+  return cudaSuccess;
+}
 
-  const Layout at(n, Op::kWords);
-  if (at.total > block_bytes) return cudaErrorInvalidValue;
-  if (at.total != sized_for) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads, at.total);
+// One kernel's set-up on the current device: its opt-in shared memory, and
+// the blocks of a given size that a multiprocessor holds at once.
+struct Sizing {
+  std::mutex lock;
+  int device = -1, threads = -1, bytes = -1, resident = 0;
+};
+
+// cudaSuccess, or why the kernel could not be launched.  Launches as many
+// blocks as are resident at once, `wanted` at most.
+template <class Kernel, class... Args>
+cudaError_t launch_resident(Sizing& sizing, const Card& card, Kernel kernel, int threads, int bytes,
+                            int wanted, cudaStream_t stream, Args... args) {
+  std::lock_guard<std::mutex> guard(sizing.lock);
+  cudaError_t err;
+  if (sizing.device != card.device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, card.block_bytes);
     if (err != cudaSuccess) return err;
-    sized_for = at.total;
+    sizing.device = card.device;
+    sizing.threads = -1;
   }
-  if (resident < 1) return cudaErrorInvalidConfiguration;
-  const int wanted = (batch + kWarps - 1) / kWarps;
-  const int blocks = wanted < sms * resident ? wanted : sms * resident;
-  kernel<<<blocks, kThreads, at.total, stream>>>(static_cast<const uint8_t*>(plane_a),
-                                                static_cast<const uint8_t*>(plane_b), out, batch, n);
+  if (bytes > card.block_bytes) return cudaErrorInvalidValue;
+  if (threads != sizing.threads || bytes != sizing.bytes) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sizing.resident, kernel, threads, bytes);
+    if (err != cudaSuccess) return err;
+    sizing.threads = threads;
+    sizing.bytes = bytes;
+  }
+  if (sizing.resident < 1) return cudaErrorInvalidConfiguration;
+  const int blocks = wanted < card.sms * sizing.resident ? wanted : card.sms * sizing.resident;
+  kernel<<<blocks, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Labels boards of N*N <= kMaxCells cells, which the caller has checked: a
+// warp a board up to 32x32, beyond that (where kMaxCells allows) a block a
+// board, with int32 arrays where they fit in a block's shared memory and
+// int16 ones where they do not.
+template <class Op, int kMaxCells = kLaneCells>
+cudaError_t launch_components(const void* plane_a, const void* plane_b, typename Op::Out out,
+                              int batch, int n, cudaStream_t stream) {
+  static_assert(kMaxCells <= kBoardCells, "int16 holds no larger board");
+  if (batch <= 0) return cudaSuccess;
+  Card card;
+  const cudaError_t err = current_card(&card);
+  if (err != cudaSuccess) return err;
+  const auto a = static_cast<const uint8_t*>(plane_a);
+  const auto b = static_cast<const uint8_t*>(plane_b);
+  if constexpr (kMaxCells > kLaneCells) {
+    if (n * n > kLaneCells) {
+      static Sizing wide_sizing, narrow_sizing;
+      const int threads = 32 * board_warps(n * n);
+      const BoardLayout wide(n, Op::kWords, sizeof(int)), narrow(n, Op::kWords, sizeof(int16_t));
+      if (wide.total <= card.block_bytes) {
+        return launch_resident(wide_sizing, card, board_kernel<Op, int>, threads, wide.total, batch, stream,
+                               a, b, out, batch, n);
+      }
+      return launch_resident(narrow_sizing, card, board_kernel<Op, int16_t>, threads, narrow.total, batch,
+                             stream, a, b, out, batch, n);
+    }
+  }
+  static Sizing sizing;
+  const Layout at(n, Op::kWords);
+  return launch_resident(sizing, card, components_kernel<Op>, kThreads, at.total, (batch + kWarps - 1) / kWarps,
+                         stream, a, b, out, batch, n);
 }
 
 }  // namespace board_components

@@ -24,9 +24,11 @@
 //
 // Design (board_components.cuh has the whole of it).  The fixpoint of an
 // empty cell is the OR of the seeds over its empty region, so the kernel
-// labels components instead of flooding by rounds: one warp a board, five
-// warp barriers a board whatever the length of the regions, where the
-// while_loop runs a round for every cell of the longest path.  This file holds
+// labels components instead of flooding by rounds: one warp a board up to
+// 32x32, one block a board from 33x33 to 181x181 (the minmax route's
+// largest board, where the JAX package's int16 indices stop), five barriers
+// a board whatever the length of the regions, where the while_loop runs a
+// round for every cell of the longest path.  This file holds
 // what is the claim flood's own: three classes (stones are labelled too, but
 // their seeds are 0, so their components reduce to 0 and they write 0), the
 // two-bit seed and the OR.  The border has a class of its own and touches no
@@ -38,7 +40,7 @@ namespace {
 
 using namespace board_components;
 
-constexpr int kMaxCells = 1024;  // 32 cells a lane
+constexpr int kMaxCells = kBoardCells;  // 181 * 181, as the min/max flood
 
 struct ClaimOp {
   using Out = uint8_t*;
@@ -55,8 +57,10 @@ struct ClaimOp {
     word[0] = (c & kClsE) ? ((touch & kClsA) ? 1 : 0) | ((touch & kClsB) ? 2 : 0) : 0;
   }
 
-  static __device__ __forceinline__ void reduce(int /*w*/, int* at, int word, int /*m*/) {
-    if (word != 0) atomicOr(at, word);
+  // at: an int32 word, or an int16 one on a board over 160x160 (the header)
+  template <class T>
+  static __device__ __forceinline__ void reduce(int /*w*/, T* at, int word, int /*m*/) {
+    if (word != 0) atomic_or(at, word);
   }
 
   static __device__ __forceinline__ void store(Out out, size_t i, const int (&word)[1]) {
@@ -69,6 +73,6 @@ struct ClaimOp {
 extern "C" int claim_flood_launch(const void* mover, const void* opp, void* out, int batch, int n,
                                   void* stream) {
   if (n < 1 || n * n > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_components<ClaimOp>(mover, opp, static_cast<uint8_t*>(out), batch, n,
+  return static_cast<int>(launch_components<ClaimOp, kMaxCells>(mover, opp, static_cast<uint8_t*>(out), batch, n,
                                                      static_cast<cudaStream_t>(stream)));
 }

@@ -23,9 +23,11 @@
 //
 // Design (board_components.cuh has the whole of it).  The fixpoint of a stone
 // is the min and the max of the seeds over its group, so the kernel labels
-// groups instead of flooding by rounds: one warp a board (32 cells a lane at
-// N = 32, the largest board it takes), five warp barriers a board, blocks of
-// 16 warps striding over the boards.  This file holds what is the
+// groups instead of flooding by rounds: one warp a board up to 32x32 (32
+// cells a lane at N = 32), five warp barriers a board, blocks of 16 warps
+// striding over the boards; one block a board from 33x33 to 181x181, the
+// largest board whose indices and BIG = N*N int16 holds (the output's type,
+// and where the JAX package's int16 indices stop).  This file holds what is the
 // min/max flood's own: two classes (a cell that is no stone has none, so it
 // is a component of one and keeps its seeds), the two seed words, and the
 // two reductions.  The TPU kernel packs (mn, BIG - mx) into one word for its
@@ -38,7 +40,7 @@ namespace {
 
 using namespace board_components;
 
-constexpr int kMaxCells = 1024;  // 32 cells a lane
+constexpr int kMaxCells = kBoardCells;  // 181 * 181: the output's int16 holds BIG = N*N
 
 struct MinmaxOp {
   struct Out {
@@ -67,11 +69,13 @@ struct MinmaxOp {
     word[1] = hi;
   }
 
-  static __device__ __forceinline__ void reduce(int w, int* at, int word, int m) {
+  // at: an int32 word, or an int16 one on a board over 133x133 (the header)
+  template <class T>
+  static __device__ __forceinline__ void reduce(int w, T* at, int word, int m) {
     if (w == 0) {
-      if (word < m) atomicMin(at, word);
+      if (word < m) atomic_min(at, word);
     } else {
-      if (word >= 0) atomicMax(at, word);
+      if (word >= 0) atomic_max(at, word);
     }
   }
 
@@ -87,6 +91,6 @@ extern "C" int minmax_flood_launch(const void* mover, const void* opp, void* mn,
                                    int batch, int n, void* stream) {
   if (n < 1 || n * n > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
   const MinmaxOp::Out out = {static_cast<int16_t*>(mn), static_cast<int16_t*>(mx)};
-  return static_cast<int>(launch_components<MinmaxOp>(mover, opp, out, batch, n,
+  return static_cast<int>(launch_components<MinmaxOp, kMaxCells>(mover, opp, out, batch, n,
                                                       static_cast<cudaStream_t>(stream)));
 }

@@ -273,7 +273,7 @@ class BatchGoEnv:
 
     ``compiled`` says whether the graphs are used: it is false on the CPU and
     on boards over the route's kernels' size (22x22 on the bundle route,
-    32x32 on the minmax route, ``GYMGO_FLOOD=unrolled`` and every non-bundle
+    181x181 on the minmax route, ``GYMGO_FLOOD=unrolled`` and every non-bundle
     value), and there the methods run the eager functions.
     """
 

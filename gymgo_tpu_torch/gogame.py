@@ -13,7 +13,7 @@ compiled once at import, as the JAX package jits them (``_step_states``,
 ``_num_liberties_jit``, ``_liberties_jit``): on the card each replays a CUDA
 graph per input shape, but the step, ``children`` and the score run their
 eager functions on boards over the route's kernels' size (22x22 on the
-bundle route, 32x32 on the minmax route).
+bundle route, 181x181 on the minmax route).
 Importing this module touches no device.
 
 The contract is the JAX package's:

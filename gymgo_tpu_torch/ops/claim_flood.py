@@ -22,8 +22,9 @@ from gymgo_tpu_torch.ops.cuda_lib import CSRC, CudaKernelLib, check_planes
 __all__ = ["CLAIM_FLOOD", "MAX_CLAIM_CELLS", "claim_flood", "claim_flood_cuda"]
 
 SOURCE = CSRC / "claim_flood.cu"
-# One warp a board, 32 cells a lane.
-MAX_CLAIM_CELLS = 1024
+# One warp a board up to 32x32, one block a board up to 181x181, the min/max
+# flood's largest board (the minmax route's).
+MAX_CLAIM_CELLS = 181 * 181
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (mover, opp, out, batch, n, stream)
 CLAIM_FLOOD = CudaKernelLib(SOURCE, "claim_flood_launch", (_P, _P, _P, _I, _I, _P))
@@ -35,7 +36,7 @@ def claim_flood_cuda(mover: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
     stones.
 
     ``mover``/``opp`` are contiguous ``(B, N, N)`` bool or uint8 CUDA tensors
-    on one device, N <= 32.  Launches on the current stream and does not
+    on one device, N <= 181.  Launches on the current stream and does not
     synchronise.
     """
     check_planes("claim_flood_cuda", mover, opp, MAX_CLAIM_CELLS)

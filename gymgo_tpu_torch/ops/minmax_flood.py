@@ -21,8 +21,9 @@ from gymgo_tpu_torch.ops.cuda_lib import CSRC, CudaKernelLib, check_planes
 __all__ = ["MINMAX_FLOOD", "MAX_MINMAX_CELLS", "minmax_flood", "minmax_flood_cuda"]
 
 SOURCE = CSRC / "minmax_flood.cu"
-# One thread per cell in one block per board.
-MAX_MINMAX_CELLS = 1024
+# One warp a board up to 32x32, one block a board up to 181x181: the largest
+# board whose indices and N*N the int16 output holds.
+MAX_MINMAX_CELLS = 181 * 181
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (mover, opp, mn, mx, batch, n, stream)
 MINMAX_FLOOD = CudaKernelLib(SOURCE, "minmax_flood_launch", (_P, _P, _P, _P, _I, _I, _P))
@@ -32,7 +33,7 @@ def minmax_flood_cuda(mover: torch.Tensor, opp: torch.Tensor):
     """``(mn, mx)``, int16 ``(B, N, N)`` each, from the hand kernel.
 
     ``mover``/``opp`` are contiguous ``(B, N, N)`` bool or uint8 CUDA tensors
-    on one device, N <= 32.  Launches on the current stream and does not
+    on one device, N <= 181.  Launches on the current stream and does not
     synchronise.
     """
     check_planes("minmax_flood_cuda", mover, opp, MAX_MINMAX_CELLS)

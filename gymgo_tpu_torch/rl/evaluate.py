@@ -13,7 +13,7 @@ a policy object built once replays across matches).  The "every game is
 done" check stays between the replays, one host read a ply.  A policy must
 be a function of its ``(generator, states)`` on the card with no host sync:
 one that reads Python state replays what it read at the capture.  Boards
-over the route's kernels' size (22x22 on the bundle route, 32x32 on the
+over the route's kernels' size (22x22 on the bundle route, 181x181 on the
 minmax route) play eagerly (``utils.graphs.capturable``).
 """
 

@@ -30,7 +30,7 @@ JAX package's ``lax.fori_loop`` over the simulations under ``jax.jit``
 (``utils.graphs.compiled``): keyed by the net (by identity), the simulation
 counts, the constants and the tree layout, replayed with the states, the
 generator and the noise copied in.  Boards over the route's kernels' size
-(22x22 on the bundle route, 32x32 on the minmax route) run the search
+(22x22 on the bundle route, 181x181 on the minmax route) run the search
 eagerly (``utils.graphs.capturable``); ``run_gumbel_mcts.fn`` is the eager search,
 which the studies measure.
 

@@ -17,7 +17,7 @@ under ``jax.jit`` (``utils.graphs.compiled``): a search is keyed by the net
 (by identity), the simulation counts, the constants and ``return_tree``, and
 replayed with the states, the generator, the noise and the warm statistics
 or tree copied in; ``compact_subtree`` by ``reuse_cap``.  Boards over the
-route's kernels' size (22x22 on the bundle route, 32x32 on the minmax route)
+route's kernels' size (22x22 on the bundle route, 181x181 on the minmax route)
 search eagerly (``utils.graphs.capturable``); ``.fn`` is the eager function.
 
 Ties break as in JAX (first-of-equals argmax, ``rl.treewalk``), so with the

@@ -12,7 +12,7 @@ loop over the window replays it once a move and writes its rows into
 preallocated ``(T, B, ...)`` tensors; the value targets are computed once a
 window, eagerly.  A window keeps one graph per mode, net, configuration,
 batch and search setting, and a move makes no host sync.  Boards over the
-route's kernels' size (22x22 on the bundle route, 32x32 on the minmax route)
+route's kernels' size (22x22 on the bundle route, 181x181 on the minmax route)
 run the move eagerly (``utils.graphs.capturable``).
 
 Every draw the JAX package takes from a key can be handed in instead

@@ -34,7 +34,7 @@ What a graph may hold:
 * No host sync: a sync inside the capture makes the capture fail, and a failed
   capture raises; nothing falls back to eager running on the card.  Every
   flood on the card is a hand kernel that makes none, up to the kernels'
-  board sizes: 22x22 on the bundle route, 32x32 on the minmax route.  Boards
+  board sizes: 22x22 on the bundle route, 181x181 on the minmax route.  Boards
   over those run eagerly (``capturable``, which ``compiled(..., when=)`` reads
   per call), where the kernels raise.
 * Draws from a ``torch.Generator`` argument: the graph draws from a
@@ -84,7 +84,8 @@ def capturable(board_size: int) -> bool:
     """True when the step, the rollout and the area score of ``board_size``
     boards run on the card's kernels, which make no host sync: on the bundle
     route boards whose cell codes the bundle word holds (N*N <= 511), on the
-    minmax route boards the min/max and claim kernels take (N <= 32)."""
+    minmax route boards the min/max and claim kernels take (N <= 181, where
+    their int16 indices stop, as the JAX package's do)."""
     cells = board_size * board_size
     if _flood.flood_route in _flood.BUNDLE_ROUTES:
         return cells <= _flood.MAX_BUNDLE_CELLS

@@ -552,7 +552,7 @@ def make_net_genmove(checkpoint: str, board_size: int, channels: int,
     ``compact_subtree`` (their shapes are the same at every move, the PUCT
     mover's empty tree included), the greedy one its forward and masked
     argmax.  Boards over the route's kernels' size (22x22 on the bundle
-    route, 32x32 on the minmax route) run eagerly."""
+    route, 181x181 on the minmax route) run eagerly."""
     import torch
 
     from gymgo_tpu_torch.convert import load_aznet_checkpoint

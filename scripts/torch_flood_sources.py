@@ -4,19 +4,24 @@ card, and count the rounds a flood by rounds needs on the same boards.
     python3 scripts/torch_flood_sources.py --rounds \\
         --bundle gymgo_tpu_torch/csrc/bundle_flood.cu --bundle OTHER/bundle_flood.cu \\
         --minmax gymgo_tpu_torch/csrc/minmax_flood.cu --minmax OTHER/minmax_flood.cu
+    python3 scripts/torch_flood_sources.py --size 64 --batch 1024 \\
+        --claim gymgo_tpu_torch/csrc/claim_flood.cu --claim OTHER/claim_flood.cu
 
-Each ``--bundle`` / ``--minmax`` names a CUDA source with the package's
-launcher interface (``bundle_flood_launch`` / ``minmax_flood_launch``): the
-package's own, an older commit's, or a copy of ``csrc/`` with a setting
-changed.  Every source is built, compared bit for bit with the plain PyTorch
-version and timed in the order given and then in reverse (A B B A), with
-``chip_smoke.py``'s timer (200 launches after 50 to warm up) on the boards
-``chip_smoke.py`` times its kernels on: the steady state of its 19x19,
-B = 12288 main path.  ``--rounds`` prints how many synchronous rounds (every
-cell reads its neighbours' words of the round before) each board needs to
-reach the fixpoint, the last round that changes nothing included: what one
-board costs a kernel that iterates to a fixpoint.  Needs a CUDA card; prints
-its name and power limit first and last.
+Each ``--bundle`` / ``--minmax`` / ``--claim`` names a CUDA source with the
+package's launcher interface (``bundle_flood_launch`` / ``minmax_flood_launch``
+/ ``claim_flood_launch``): the package's own, an older commit's, or a copy of
+``csrc/`` with a setting changed.  Every source is built, compared bit for bit
+with the plain PyTorch version and timed in the order given and then in
+reverse (A B B A), with ``chip_smoke.py``'s timer (200 launches after 50 to
+warm up) on the boards ``chip_smoke.py`` times its kernels on: the steady
+state of its main path's rollout (768 warm-up steps and 5 windows of 64),
+19x19 B = 12288 unless ``--size`` / ``--batch`` say otherwise (boards over
+22x22, which the bundle word cannot hold, roll out on the minmax route).
+``--rounds`` prints how many synchronous rounds (every cell reads its
+neighbours' words of the round before) each board needs to reach the
+fixpoint, the last round that changes nothing included: what one board
+costs a kernel that iterates to a fixpoint.  Needs a CUDA card; prints its
+name and power limit first and last.
 """
 
 from __future__ import annotations
@@ -36,19 +41,26 @@ from gymgo_tpu_torch.core import flood as tflood  # noqa: E402
 from gymgo_tpu_torch.core.state import batch_init_state  # noqa: E402
 from gymgo_tpu_torch.env.batch_env import rollout  # noqa: E402
 from gymgo_tpu_torch.ops.bundle_flood import BUNDLE_FLOOD  # noqa: E402
+from gymgo_tpu_torch.ops.claim_flood import CLAIM_FLOOD  # noqa: E402
 from gymgo_tpu_torch.ops.cuda_lib import CudaKernelLib  # noqa: E402
 from gymgo_tpu_torch.ops.minmax_flood import MINMAX_FLOOD  # noqa: E402
 
 _DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 
 
-def steady_boards(dev):
+def steady_boards(dev, n=19, batch=12288):
     """(mover, opp) planes where ``chip_smoke.py``'s main path ends: 768
-    warm-up steps and 5 windows of 64 from empty 19x19 boards, B = 12288."""
-    cfg = EnvConfig(board_size=19, batch_size=12288, reward_method=HEURISTIC, auto_reset=True)
+    warm-up steps and 5 windows of 64 from empty boards; on the minmax route
+    where the bundle word cannot hold the board."""
+    cfg = EnvConfig(board_size=n, batch_size=batch, reward_method=HEURISTIC, auto_reset=True)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
-    states = rollout(gen, batch_init_state(12288, 19, device=dev), 768, cfg).final_states
-    _, runs, _ = chip_smoke.timed_windows(rollout, gen, states, cfg, 64, 5)
+    route = tflood.flood_route if n * n <= tflood.MAX_BUNDLE_CELLS else "unrolled"
+    previous = tflood.set_flood_route(route)
+    try:
+        states = rollout(gen, batch_init_state(batch, n, device=dev), 768, cfg).final_states
+        _, runs, _ = chip_smoke.timed_windows(rollout, gen, states, cfg, 64, 5)
+    finally:
+        tflood.set_flood_route(previous)
     return chip_smoke.boards_of(runs[-1].final_states)
 
 
@@ -95,7 +107,8 @@ class Candidate:
     def __init__(self, package_lib: CudaKernelLib, path: str, a: torch.Tensor, b: torch.Tensor):
         self.path = path
         self.lib = CudaKernelLib(Path(path).resolve(), package_lib.symbol, package_lib.argtypes)
-        dtype, count = (torch.int32, 1) if package_lib is BUNDLE_FLOOD else (torch.int16, 2)
+        dtype, count = {BUNDLE_FLOOD: (torch.int32, 1), MINMAX_FLOOD: (torch.int16, 2),
+                        CLAIM_FLOOD: (torch.uint8, 1)}[package_lib]
         self.out = tuple(torch.empty(a.shape, dtype=dtype, device=a.device) for _ in range(count))
         self.fn = self.lib.function()
         self.args = (a.data_ptr(), b.data_ptr(), *(o.data_ptr() for o in self.out), a.shape[0],
@@ -112,6 +125,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bundle", action="append", default=[], metavar="SOURCE")
     ap.add_argument("--minmax", action="append", default=[], metavar="SOURCE")
+    ap.add_argument("--claim", action="append", default=[], metavar="SOURCE")
+    ap.add_argument("--size", type=int, default=19)
+    ap.add_argument("--batch", type=int, default=12288)
     ap.add_argument("--rounds", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -122,8 +138,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    a, b = steady_boards(dev)
-    print(f"boards: 19x19 B={a.shape[0]}, steady state, "
+    a, b = steady_boards(dev, args.size, args.batch)
+    print(f"boards: {args.size}x{args.size} B={a.shape[0]}, steady state, "
           f"mean stones/board {(a | b).sum().item() / a.shape[0]:.1f}", flush=True)
 
     if args.rounds:
@@ -133,7 +149,8 @@ def main(argv=None) -> int:
 
     for kind, package_lib, paths, plain in (
             ("bundle", BUNDLE_FLOOD, args.bundle, lambda: (tflood.bundle_flood_plain(a, b),)),
-            ("minmax", MINMAX_FLOOD, args.minmax, lambda: tflood.minmax_flood_plain(a, b))):
+            ("minmax", MINMAX_FLOOD, args.minmax, lambda: tflood.minmax_flood_plain(a, b)),
+            ("claim", CLAIM_FLOOD, args.claim, lambda: (tflood.claim_flood_plain(a, b),))):
         if not paths:
             continue
         want = plain()

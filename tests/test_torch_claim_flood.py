@@ -165,7 +165,8 @@ def test_25x25_minmax_route_rollout_matches_jax_unrolled(tmp_path):
     ("bitpack", 9, True), ("bitpack", 19, True), ("bitpack", 22, True), ("bitpack", 23, False),
     ("pallas", 22, True), ("pallas", 25, False),
     ("unrolled", 1, True), ("unrolled", 9, True), ("unrolled", 19, True), ("unrolled", 23, True),
-    ("unrolled", 25, True), ("unrolled", 32, True), ("unrolled", 33, False), ("simple", 32, True),
+    ("unrolled", 25, True), ("unrolled", 32, True), ("unrolled", 33, True), ("unrolled", 64, True),
+    ("unrolled", 181, True), ("unrolled", 182, False), ("simple", 32, True),
 ])
 def test_capturable_follows_the_routes_kernels(route, n, want):
     previous = tflood.set_flood_route(route)

@@ -306,7 +306,7 @@ def test_capturable_and_the_envs_compiled_flags():
     try:
         assert graphs.capturable(19) and graphs.capturable(22) and not graphs.capturable(23)
         tflood.set_flood_route("unrolled")
-        assert all(graphs.capturable(n) for n in (9, 19, 25, 32)) and not graphs.capturable(33)
+        assert all(graphs.capturable(n) for n in (9, 19, 25, 32, 33, 181)) and not graphs.capturable(182)
     finally:
         tflood.set_flood_route(before)
     cfg = EnvConfig(board_size=9, batch_size=8, reward_method="heuristic", auto_reset=True)

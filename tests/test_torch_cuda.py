@@ -1,5 +1,6 @@
 """The port on a CUDA card: each flood kernel (bundle, min/max, claim) against
-its plain version, on the rollout of its route, and on bad input; the stateless step, the area score,
+its plain version, on the rollout of its route, and on bad input, the min/max
+and claim kernels up to 181x181; the stateless step, the area score,
 the net and the search against the CPU plain path; the step's ablation
 switches and ``measure_convergence``'s kernel check; the compiled forms
 (CUDA graphs) against their eager functions, the search, the self-play move
@@ -140,8 +141,8 @@ def test_minmax_kernel_rejects_bad_input(cuda_device):
         tminmax.minmax_flood_cuda(ok.int(), ok.int())
     with pytest.raises(ValueError, match="contiguous"):
         tminmax.minmax_flood_cuda(ok.transpose(1, 2), ok.transpose(1, 2))
-    with pytest.raises(ValueError, match="1024"):
-        big = torch.zeros((1, 33, 33), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="32761"):
+        big = torch.zeros((1, 182, 182), dtype=torch.bool, device=cuda_device)
         tminmax.minmax_flood_cuda(big, big)
     with pytest.raises(ValueError, match="CUDA"):
         tminmax.minmax_flood_cuda(ok, ok.cpu())
@@ -170,10 +171,132 @@ def test_claim_kernel_rejects_bad_input(cuda_device):
         tclaim.claim_flood_cuda(ok.int(), ok.int())
     with pytest.raises(ValueError, match="contiguous"):
         tclaim.claim_flood_cuda(ok.transpose(1, 2), ok.transpose(1, 2))
-    with pytest.raises(ValueError, match="1024"):
-        big = torch.zeros((1, 33, 33), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="32761"):
+        big = torch.zeros((1, 182, 182), dtype=torch.bool, device=cuda_device)
         tclaim.claim_flood_cuda(big, big)
     assert tclaim.CLAIM_FLOOD.launches == launches
+
+
+# Boards over 32x32: one block a board; int32 arrays in shared memory up to 133x133 (min/max) and
+# 160x160 (claim) on an H100, int16 ones above; 124/125 and 145/146 are where the arrays of one board
+# would stop fitting with a place table beside them, 181 where int16 indices stop.
+_BIG_SIZES = [33, 37, 45, 63, 64, 65, 100, 124, 125, 133, 134, 145, 146, 160, 161, 181]
+
+
+@pytest.mark.parametrize("n", _BIG_SIZES)
+def test_kernels_match_plain_over_32x32(n, cuda_device):
+    planes = [random_boards(np.random.default_rng(60 + n), 21, n), adversarial_boards(n), component_boards(n)]
+    a, b = (torch.from_numpy(np.concatenate(x)).to(cuda_device) for x in zip(*planes))
+    launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+    mn, mx = tminmax.minmax_flood_cuda(a, b)
+    claims = tclaim.claim_flood_cuda(a, b)
+    assert (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches) == (launches[0] + 1, launches[1] + 1)
+    # bit for bit on every cell, against the plain versions on the same card (by rounds: the long
+    # chains of the serpentine, comb and spiral boards take thousands)
+    pmn, pmx = minmax_flood_plain(a, b)
+    pclaims = claim_flood_plain(a, b)
+    assert torch.equal(mn, pmn) and torch.equal(mx, pmx)
+    assert torch.equal(claims, pclaims)
+    # one board, 17, and all of them at an address that is no multiple of 16 (at N = 64 every
+    # slice of the batch is aligned, so the planes are copied one byte into a buffer)
+    def misaligned(x):
+        return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape).copy_(x)
+
+    ma, mb = misaligned(a), misaligned(b)
+    assert ma.data_ptr() % 16 != 0 and ma.is_contiguous()
+    for sa, sb, cut in ((a[:1], b[:1], slice(0, 1)), (a[:17], b[:17], slice(0, 17)), (ma, mb, slice(None))):
+        kmn, kmx = tminmax.minmax_flood_cuda(sa, sb)
+        assert torch.equal(kmn, pmn[cut]) and torch.equal(kmx, pmx[cut])
+        assert torch.equal(tclaim.claim_flood_cuda(sa, sb), pclaims[cut])
+
+
+@pytest.mark.parametrize("n", [37, 64, 181])
+def test_areas_over_32x32_match_cpu_without_a_host_sync(n, cuda_device):
+    states = torch.from_numpy(states_on_boards(n, 8))
+    on_card = states.to(cuda_device)
+    tscore.areas(on_card)  # build the kernel outside the sync check
+    claim = tclaim.CLAIM_FLOOD.launches
+    with _no_host_sync():
+        got_areas = tscore.areas(on_card)
+    assert tclaim.CLAIM_FLOOD.launches == claim + 1
+    for got, want in zip(got_areas, tscore.areas(states)):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_64x64_compiled_window_equals_eager_without_a_host_sync(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    n, b, steps = 64, 64, 24
+    cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        assert env.compiled
+        start = env.rollout(torch.Generator(device=cuda_device).manual_seed(11), env.reset(), steps).final_states
+        gc, ge = (torch.Generator(device=cuda_device).manual_seed(12) for _ in range(2))
+        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+        with _no_host_sync():
+            got = env.rollout(gc, start, steps)
+        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+        assert tuple(x - y for x, y in zip(counted, launches)) == (steps + 1, steps, 0)
+        with graphs.eager():
+            want = env.rollout(ge, start, steps)
+        (graph,) = env._rollout.graphs.values()
+        assert graph.replays == 1
+    finally:
+        tflood.set_flood_route(previous)
+    for field in _FIELDS:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert torch.equal(gc.get_state(), ge.get_state())
+    assert not got.invalid.any() and (got.rewards != 0).any()
+
+
+def test_181x181_compiled_window_replays_on_cpu(cuda_device):
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv
+
+    n, b, steps = 181, 2, 12
+    cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
+    env = BatchGoEnv(cfg, device=cuda_device)
+    assert not env.compiled  # the bundle word holds no 181x181 board
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        assert env.compiled
+        g = torch.Generator(device=cuda_device).manual_seed(13)
+        first = env.rollout(g, env.reset(), steps)  # runs eagerly and captures
+        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+        with _no_host_sync():
+            r = env.rollout(g, first.final_states, steps)
+        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+        assert (counted[0] - launches[0], counted[1] - launches[1]) == (steps + 1, steps)
+        acts = iter(r.actions.cpu())
+        rc = rollout(torch.Generator(), first.final_states.cpu(), steps, cfg, policy_fn=lambda _g, _s: next(acts))
+    finally:
+        tflood.set_flood_route(previous)
+    assert not r.invalid.any()
+    for field in ("final_states", "rewards", "dones"):
+        assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
+
+
+def test_go_env_over_32x32_on_the_card_matches_cpu(cuda_device):
+    from gymgo_tpu_torch.env import GoEnv
+
+    previous = tflood.set_flood_route("unrolled")
+    try:
+        envs = [GoEnv(37, reward_method="heuristic", backend="torch", device=cuda_device),
+                GoEnv(37, reward_method="heuristic", backend="torch", device="cpu")]
+        rng = np.random.RandomState(1)
+        launches = tminmax.MINMAX_FLOOD.launches
+        for t in range(120):
+            valid = np.flatnonzero(envs[0].valid_moves())
+            a = int(rng.choice(valid))
+            (obs, reward, done, info), (o, r, d, i) = [e.step(a) for e in envs]
+            assert np.array_equal(o, obs) and r == reward and d == done
+            assert np.array_equal(i["invalid_moves"], info["invalid_moves"])
+            if done:
+                break
+        assert tminmax.MINMAX_FLOOD.launches >= launches + 2 * (t + 1)  # each step classifies twice
+    finally:
+        tflood.set_flood_route(previous)
 
 
 @contextlib.contextmanager
