@@ -428,9 +428,12 @@ def host_syncs():
 def device_profile(fn):
     """Run ``fn`` under torch.profiler: (wall us, [(device us, launches,
     kernel name)] by device time).  Kernel events only: an aten op's row
-    repeats the time of its kernels."""
+    repeats the time of its kernels, and the device-side image of one of the
+    program's layer spans (``gymgo.*``) spans the kernels inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gymgo_tpu_torch.utils.tracing import PREFIX
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -439,7 +442,7 @@ def device_profile(fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0 and not ev.key.startswith(PREFIX)]
     return wall_us, sorted(rows, reverse=True)
 
 

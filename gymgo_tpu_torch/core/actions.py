@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from gymgo_tpu_torch import govars
+from gymgo_tpu_torch.utils import tracing
 
 __all__ = [
     "batch_invalid_moves",
@@ -136,8 +137,9 @@ def uniform_from_words(word: torch.Tensor, valid_board: torch.Tensor) -> torch.T
 
 
 def _uniform_from_valid(generator, valid_board):
-    word = draw_words(generator, valid_board.shape[:1], valid_board.device)
-    return uniform_from_words(word, valid_board)
+    with tracing.span("env.sampler"):
+        word = draw_words(generator, valid_board.shape[:1], valid_board.device)
+        return uniform_from_words(word, valid_board)
 
 
 def uniform_random_actions(generator: torch.Generator, states: torch.Tensor) -> torch.Tensor:

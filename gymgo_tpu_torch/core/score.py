@@ -19,6 +19,7 @@ from gymgo_tpu_torch import govars
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core.flood import neighbor_or
 from gymgo_tpu_torch.ops.claim_flood import claim_flood
+from gymgo_tpu_torch.utils import tracing
 
 __all__ = ["areas", "areas_planes", "winning", "winning_planes", "liberties", "num_liberties"]
 
@@ -26,18 +27,21 @@ __all__ = ["areas", "areas_planes", "winning", "winning_planes", "liberties", "n
 def _claims(black: torch.Tensor, white: torch.Tensor):
     """(only_black, only_white): empty cells whose region touches one colour."""
     black, white = black.contiguous(), white.contiguous()
-    if black.is_cuda and black[0].numel() <= _flood.MAX_BUNDLE_CELLS:
-        return _flood.flood_bundle(black, white)[2:4]
-    claims = claim_flood(black, white)
-    return claims == 1, claims == 2
+    with tracing.span("env.flood"):
+        if black.is_cuda and black[0].numel() <= _flood.MAX_BUNDLE_CELLS:
+            return _flood.flood_bundle(black, white)[2:4]
+        claims = claim_flood(black, white)
+        return claims == 1, claims == 2
 
 
 def areas_planes(black: torch.Tensor, white: torch.Tensor):
-    """(black_area, white_area) int32 (B,) from bool colour planes (B, N, N)."""
+    """(black_area, white_area) int32 (B,) from bool colour planes (B, N, N),
+    under the span ``env.score``."""
     b = black.shape[0]
-    only_black, only_white = _claims(black, white)
-    black_area = (black | only_black).reshape(b, -1).sum(1, dtype=torch.int32)
-    white_area = (white | only_white).reshape(b, -1).sum(1, dtype=torch.int32)
+    with tracing.span("env.score"):
+        only_black, only_white = _claims(black, white)
+        black_area = (black | only_black).reshape(b, -1).sum(1, dtype=torch.int32)
+        white_area = (white | only_white).reshape(b, -1).sum(1, dtype=torch.int32)
     return black_area, white_area
 
 

@@ -44,6 +44,7 @@ import torch
 from gymgo_tpu_torch import govars
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core.flood import flood_or, neighbor_or, shift
+from gymgo_tpu_torch.utils import tracing
 
 __all__ = [
     "StepInfo",
@@ -159,7 +160,8 @@ def init_atari(ps: PlanesState) -> torch.Tensor:
     """Seed the carried atari encoding for an arbitrary board (one liberty
     classification of the selected route; every later ``step_planes``
     refreshes it for free)."""
-    return _flood.liberty_classification_best(ps.black.contiguous(), ps.white.contiguous())[2]
+    with tracing.span("env.flood"):
+        return _flood.liberty_classification_best(ps.black.contiguous(), ps.white.contiguous())[2]
 
 
 def _killed_by_classes(black, white, opp, board_idx):
@@ -168,8 +170,8 @@ def _killed_by_classes(black, white, opp, board_idx):
     tensors): groups whose sole liberty is that point, and groups that stand
     without a liberty already.  Equal to the flood of the board after the
     move, since the move takes away that one empty cell and no other."""
-    one_lib, multi_lib, atari = _flood.liberty_classification_best(
-        black.contiguous(), white.contiguous())
+    with tracing.span("env.flood"):
+        one_lib, multi_lib, atari = _flood.liberty_classification_best(black.contiguous(), white.contiguous())
     placed_enc = (board_idx + 1).to(torch.int16)[:, None, None]
     return opp & ((atari == placed_enc) | ~(one_lib | multi_lib))
 
@@ -192,7 +194,14 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     On CUDA tensors it makes no host sync on the default route, with or
     without the carried planes.  On CPU tensors without ``atari`` the capture
     flood is the plain ``flood_or``, which checks its convergence on the host.
+    Runs under the span ``env.rules``, its flood under ``env.flood`` and its
+    area sums under ``env.score`` (``utils.tracing``).
     """
+    with tracing.span("env.rules"):
+        return _step_planes(ps, actions)
+
+
+def _step_planes(ps: PlanesState, actions: torch.Tensor):
     b, n, _ = ps.black.shape
     m = n * n
     dev = ps.black.device
@@ -267,20 +276,22 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
         one_lib, multi_lib, only_mover, only_opp = all_pieces, empty, empty, empty
         atari_enc = torch.zeros((b, n, n), dtype=torch.int16, device=dev)
     else:
-        one_lib, multi_lib, only_mover, only_opp, atari_enc = _flood.flood_bundle_best(
-            mover.contiguous(), opp.contiguous()
-        )
+        with tracing.span("env.flood"):
+            one_lib, multi_lib, only_mover, only_opp, atari_enc = _flood.flood_bundle_best(
+                mover.contiguous(), opp.contiguous()
+            )
 
-    if "areas" in ablate:
-        mover_area = opp_area = torch.zeros((b,), dtype=torch.int32, device=dev)
-    else:
-        # Both Trump-Taylor areas in one reduction (area <= N*N < 2^10).
-        area_word = ((mover | only_mover).to(torch.int32) << 10) | (opp | only_opp).to(torch.int32)
-        area_sum = area_word.view(b, m).sum(1, dtype=torch.int32)
-        mover_area = area_sum >> 10
-        opp_area = area_sum & ((1 << 10) - 1)
-    black_area = torch.where(mover_is_white, opp_area, mover_area)
-    white_area = torch.where(mover_is_white, mover_area, opp_area)
+    with tracing.span("env.score"):
+        if "areas" in ablate:
+            mover_area = opp_area = torch.zeros((b,), dtype=torch.int32, device=dev)
+        else:
+            # Both Trump-Taylor areas in one reduction (area <= N*N < 2^10).
+            area_word = ((mover | only_mover).to(torch.int32) << 10) | (opp | only_opp).to(torch.int32)
+            area_sum = area_word.view(b, m).sum(1, dtype=torch.int32)
+            mover_area = area_sum >> 10
+            opp_area = area_sum & ((1 << 10) - 1)
+        black_area = torch.where(mover_is_white, opp_area, mover_area)
+        white_area = torch.where(mover_is_white, mover_area, opp_area)
 
     white_to_move_next = white_to_move ^ ~frozen
 

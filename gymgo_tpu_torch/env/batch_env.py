@@ -25,6 +25,7 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.utils import tracing
 from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
 __all__ = ["StepResult", "Rollout", "reward_from_areas", "batch_step", "shard_over_envs", "rollout",
@@ -50,23 +51,26 @@ def reward_from_areas(black_area, white_area, done, config: EnvConfig) -> torch.
     HEURISTIC pays the area difference every step and +/- N^2 at game end, a
     tie at game end counting as a loss (the reference's quirk)."""
     n = config.board_size
-    kc = black_area.to(torch.float32) - white_area.to(torch.float32) - config.komi
-    if config.reward_method == REAL:
-        return torch.where(done, torch.sign(kc), 0.0)
-    if config.reward_method == HEURISTIC:
-        end_reward = torch.where(kc > 0, 1.0, -1.0) * (n * n)
-        return torch.where(done, end_reward, kc)
+    with tracing.span("env.score"):
+        kc = black_area.to(torch.float32) - white_area.to(torch.float32) - config.komi
+        if config.reward_method == REAL:
+            return torch.where(done, torch.sign(kc), 0.0)
+        if config.reward_method == HEURISTIC:
+            end_reward = torch.where(kc > 0, 1.0, -1.0) * (n * n)
+            return torch.where(done, end_reward, kc)
     raise ValueError(config.reward_method)
 
 
 def batch_step(states: torch.Tensor, actions: torch.Tensor, config: EnvConfig):
     """Batched transition: auto-reset (optional) -> move -> reward."""
     if config.auto_reset:
-        done_pre = _state.game_ended(states)
-        states = torch.where(done_pre[:, None, None, None], 0, states)
-    new_states, info = _step.step_states(states, actions)
-    done = _state.game_ended(new_states)
-    reward = reward_from_areas(info.black_area, info.white_area, done, config)
+        with tracing.span("env.reset"):
+            done_pre = _state.game_ended(states)
+            states = torch.where(done_pre[:, None, None, None], 0, states)
+    with tracing.span("env.step"):
+        new_states, info = _step.step_states(states, actions)
+        done = _state.game_ended(new_states)
+        reward = reward_from_areas(info.black_area, info.white_area, done, config)
     return new_states, StepResult(
         obs=new_states,
         reward=reward,
@@ -199,7 +203,8 @@ def rollout(
         if no_sampler:
             acts = torch.zeros(ps.done.shape, dtype=torch.int32, device=ps.done.device)
         elif sample:
-            acts = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1))
+            with tracing.span("env.sampler"):
+                acts = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1))
         else:
             acts = x
         ps, info = _step.step_planes(ps, acts)
@@ -226,26 +231,29 @@ def rollout(
         ))
     for t in range(num_steps):
         if config.auto_reset:
-            for ps in shards:
-                _reset_finished(ps)
+            with tracing.span("env.reset"):
+                for ps in shards:
+                    _reset_finished(ps)
         if no_sampler:
             x = [None] * len(shards)
         elif sample:
-            x = _actions.draw_words(generator, (batch,), generator.device)
+            with tracing.span("env.sampler"):
+                x = _actions.draw_words(generator, (batch,), generator.device)
         else:
             local = [_step.states_from_planes(ps) for ps in shards]
             acts = policy_fn(generator, _tree_concat(local))
             x = list(torch.split(acts, [len(s) for s in local]))
             x = [a.to(s.device) for a, s in zip(x, local)]
-        for j, (ps, acts, reward, invalid) in enumerate(move_all(shards, x)):
-            shards[j] = ps
-            acts_out, rewards, dones, inval, obs = outs[j]
-            acts_out[t] = acts
-            rewards[t] = reward
-            dones[t] = ps.done
-            inval[t] = invalid
-            if collect_obs:
-                obs[t] = _step.states_from_planes(ps)
+        with tracing.span("env.step"):
+            for j, (ps, acts, reward, invalid) in enumerate(move_all(shards, x)):
+                shards[j] = ps
+                acts_out, rewards, dones, inval, obs = outs[j]
+                acts_out[t] = acts
+                rewards[t] = reward
+                dones[t] = ps.done
+                inval[t] = invalid
+                if collect_obs:
+                    obs[t] = _step.states_from_planes(ps)
     fields = list(zip(*(
         Rollout(actions=o[0], rewards=o[1], dones=o[2], invalid=o[3],
                 final_states=_step.states_from_planes(ps, dtype), obs=o[4])

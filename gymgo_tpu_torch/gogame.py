@@ -38,6 +38,7 @@ from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.core.state import resolve_device
 from gymgo_tpu_torch.utils import render as _render
+from gymgo_tpu_torch.utils import tracing
 from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
 _OUT_DTYPE = np.float64
@@ -63,14 +64,16 @@ def _to_device(state, device) -> torch.Tensor:
 
 
 def _to_host(state: torch.Tensor) -> np.ndarray:
-    return state.cpu().numpy().astype(_OUT_DTYPE)
+    with tracing.sync("gogame.to_host"):
+        return state.cpu().numpy().astype(_OUT_DTYPE)
 
 
 def _step_checked(batch_states, batch_action1d, device):
     dev = _to_device(batch_states, device)
     acts = torch.from_numpy(np.asarray(batch_action1d).astype(np.int32)).to(dev.device)
     new_states, info = _run(_step_states, dev, acts)
-    bad = info.invalid_action.cpu().numpy()
+    with tracing.sync("gogame.step_checked"):
+        bad = info.invalid_action.cpu().numpy()
     assert not bad.any(), ("Invalid move", np.nonzero(bad)[0].tolist())
     return new_states, info
 
@@ -100,7 +103,8 @@ def _next_state_with_areas(state, action1d, *, device=None):
     Trump-Taylor areas ``(black, white)``, which the step computes anyway,
     so the reward pays no second flood."""
     new_states, info = _step_checked(np.asarray(state)[None], np.asarray([action1d]), device)
-    areas = (int(info.black_area[0]), int(info.white_area[0]))
+    with tracing.sync("gogame.step_areas"):
+        areas = (int(info.black_area[0]), int(info.white_area[0]))
     return _to_host(new_states)[0], areas
 
 
@@ -204,22 +208,26 @@ def batch_winning(state, komi=0, *, device=None):
 
 def areas(state, *, device=None):
     ba, wa = _run(_areas_jit, _to_device(state, device)[None])
-    return float(ba[0]), float(wa[0])
+    with tracing.sync("gogame.areas"):
+        return float(ba[0]), float(wa[0])
 
 
 def batch_areas(batch_state, *, device=None):
     ba, wa = _run(_areas_jit, _to_device(batch_state, device))
-    return ba.cpu().numpy().astype(_OUT_DTYPE), wa.cpu().numpy().astype(_OUT_DTYPE)
+    with tracing.sync("gogame.areas"):
+        return ba.cpu().numpy().astype(_OUT_DTYPE), wa.cpu().numpy().astype(_OUT_DTYPE)
 
 
 def liberties(state, *, device=None):
     bl, wl = _liberties_jit(_to_device(state, device)[None])
-    return bl[0].cpu().numpy(), wl[0].cpu().numpy()
+    with tracing.sync("gogame.liberties"):
+        return bl[0].cpu().numpy(), wl[0].cpu().numpy()
 
 
 def num_liberties(state, *, device=None):
     bl, wl = _num_liberties_jit(_to_device(state, device)[None])
-    return int(bl[0]), int(wl[0])
+    with tracing.sync("gogame.liberties"):
+        return int(bl[0]), int(wl[0])
 
 
 # --------------------------------------------------------------------------

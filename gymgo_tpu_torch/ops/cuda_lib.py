@@ -6,9 +6,9 @@ by ``nvcc`` for ``sm_90a`` into a shared library at first use, into
 it includes with quotes, so an edited source or header builds anew), and
 loaded with ``ctypes``.  Nothing is compiled or loaded when this module is
 imported.  Every wrapper of a kernel keeps its own
-``CudaKernelLib``, and so its own launch count.  ``LIBRARIES`` lists them all,
-so that a CUDA graph (``utils.graphs``) can add the launches it captured to
-their counts each time it replays.
+``CudaKernelLib``, and so its own launch count: a counter of
+``utils.tracing``, which a CUDA graph (``utils.graphs``) adds the launches it
+captured to each time it replays.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARIES", "CudaKernelLib", "check_planes", "source_files"]
+from gymgo_tpu_torch.utils import tracing
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernelLib", "check_planes", "source_files"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,9 +37,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-
-# every CudaKernelLib made, in order
-LIBRARIES: list["CudaKernelLib"] = []
 
 _QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
@@ -69,19 +68,27 @@ class CudaKernelLib:
     ``argtypes`` are the C launcher's argument types: ``ctypes.c_void_p`` for
     each pointer and the stream, ``ctypes.c_int`` for each int.  The launcher
     returns a ``cudaError_t`` as an int.  ``launches`` counts the kernels run
-    through ``launch``, and those a CUDA graph replays (``utils.graphs``).
+    through ``launch``, and those a CUDA graph replays (``utils.graphs``): the
+    counter ``launches.<symbol>`` of ``utils.tracing``.
     """
 
     def __init__(self, source: Path, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
+        self.counter = f"launches.{symbol}"
         self.build_seconds = None
         self.build_log = ""  # nvcc's output: registers, shared memory, spills
         self._fn = None
         self._lock = threading.Lock()
-        LIBRARIES.append(self)
+
+    @property
+    def launches(self) -> int:
+        return tracing.counters[self.counter]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        tracing.counters[self.counter] = n
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
@@ -129,7 +136,7 @@ class CudaKernelLib:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err}")
-        self.launches += 1
+        tracing.count(self.counter)
 
 
 def check_planes(name: str, mover: torch.Tensor, opp: torch.Tensor, max_cells: int) -> None:

@@ -54,6 +54,7 @@ from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
 from gymgo_tpu_torch.rl import treewalk as _treewalk
+from gymgo_tpu_torch.utils import tracing
 from gymgo_tpu_torch.utils.graphs import capturable_states, compiled, register_key_part
 
 __all__ = ["GumbelMCTSResult", "seq_halving_schedule", "run_gumbel_mcts", "make_gumbel_mcts_policy",
@@ -150,22 +151,25 @@ def run_gumbel_mcts(
     use_logp = "logp" in pack
 
     def masked_policy(sts):
-        logits, value = net(_transform.batch_canonical_form(sts))
-        valid = _actions.batch_valid_moves(sts) > 0
-        return torch.where(valid, logits, neg_inf), value, valid
+        with tracing.span("search.net"):
+            tracing.count("search.net_rows", sts.shape[0])
+            logits, value = net(_transform.batch_canonical_form(sts))
+            valid = _actions.batch_valid_moves(sts) > 0
+            return torch.where(valid, logits, neg_inf), value, valid
 
     root_logits, root_value_net, valid_root = masked_policy(states)
-    valid_root = _actions.mask_early_pass(valid_root, states, pass_min_stones)
-    root_logits = torch.where(valid_root, root_logits, neg_inf)
-    if gumbel is None:
-        gumbel = _actions.gumbel_noise(generator, (b, a_size), dev)
-    g = gumbel.to(device=dev, dtype=torch.float32)
-    # Gumbel-top-m without replacement over valid actions; an env with fewer
-    # than m valid actions fills its tail with the lowest invalid indices.
-    noisy = torch.where(valid_root, root_logits + g, neg_inf)
-    cand = noisy.sort(dim=1, descending=True, stable=True).indices[:, :m]  # (B, M) int64
-    cand_valid = valid_root.gather(1, cand)
-    cand_base = torch.where(cand_valid, noisy.gather(1, cand), neg_inf)
+    with tracing.span("search.root"):
+        valid_root = _actions.mask_early_pass(valid_root, states, pass_min_stones)
+        root_logits = torch.where(valid_root, root_logits, neg_inf)
+        if gumbel is None:
+            gumbel = _actions.gumbel_noise(generator, (b, a_size), dev)
+        g = gumbel.to(device=dev, dtype=torch.float32)
+        # Gumbel-top-m without replacement over valid actions; an env with fewer
+        # than m valid actions fills its tail with the lowest invalid indices.
+        noisy = torch.where(valid_root, root_logits + g, neg_inf)
+        cand = noisy.sort(dim=1, descending=True, stable=True).indices[:, :m]  # (B, M) int64
+        cand_valid = valid_root.gather(1, cand)
+        cand_base = torch.where(cand_valid, noisy.gather(1, cand), neg_inf)
 
     # Tree arrays.  Values are stored from the node mover's view throughout.
     node_states = torch.zeros((b, num_nodes) + tuple(states.shape[1:]), dtype=states.dtype, device=dev)
@@ -219,92 +223,98 @@ def run_gumbel_mcts(
     for sim in range(num_simulations):
         # ---- root action by sequential halving: among the top-`considered`
         # candidates by g + logits + sigma(q), visit the least-visited.
-        cn, cq = root_candidate_stats()
-        score = torch.where(cand_valid, candidate_scores(cq)[0], neg_inf)
-        order = torch.argsort(-score, dim=1, stable=True)
-        rank = torch.empty((b, m), dtype=torch.int32, device=dev).scatter_(1, order, slot_rank)
-        in_play = (rank < schedule[sim]) & cand_valid
-        # lexicographic (visits, rank) argmin; slots out of play are pushed
-        # past any reachable visit count (<= num_simulations < 2^20)
-        pick_key = torch.where(in_play, cn, 1 << 20) * m + rank
-        root_action = cand.gather(1, pick_key.argmin(dim=1, keepdim=True))[:, 0]
+        with tracing.span("search.root"):
+            cn, cq = root_candidate_stats()
+            score = torch.where(cand_valid, candidate_scores(cq)[0], neg_inf)
+            order = torch.argsort(-score, dim=1, stable=True)
+            rank = torch.empty((b, m), dtype=torch.int32, device=dev).scatter_(1, order, slot_rank)
+            in_play = (rank < schedule[sim]) & cand_valid
+            # lexicographic (visits, rank) argmin; slots out of play are pushed
+            # past any reachable visit count (<= num_simulations < 2^20)
+            pick_key = torch.where(in_play, cn, 1 << 20) * m + rank
+            root_action = cand.gather(1, pick_key.argmin(dim=1, keepdim=True))[:, 0]
 
         # ---- selection walk: the depth-0 edge is forced to root_action,
         # interior edges follow the deterministic rule; stop at an unexpanded
         # edge or a terminal child.
-        tables = _treewalk.node_tables(interior_scores(), child, node_done)
-        f_nxt, f_keep = _treewalk.forced_root_edge(root_action, child, node_done)
-        # slots 0..sim are filled, so no path is longer than sim + 1
-        sel_depth, path_n, path_a = _treewalk.walk_paths(
-            *tables, max_depth, forced_root=(root_action, f_nxt, f_keep), depth_bound=sim + 1
-        )
-        last = (sel_depth - 1).clamp_min(0).to(torch.int64)[:, None]
-        exp_parent = path_n.gather(1, last)[:, 0].to(torch.int64)
-        exp_action = path_a.gather(1, last)[:, 0].to(torch.int64)
-        prev_child = child[bidx, exp_parent, exp_action]
-        already = prev_child >= 0
+        with tracing.span("search.walk"):
+            tables = _treewalk.node_tables(interior_scores(), child, node_done)
+            f_nxt, f_keep = _treewalk.forced_root_edge(root_action, child, node_done)
+            # slots 0..sim are filled, so no path is longer than sim + 1
+            sel_depth, path_n, path_a = _treewalk.walk_paths(
+                *tables, max_depth, forced_root=(root_action, f_nxt, f_keep), depth_bound=sim + 1
+            )
+            last = (sel_depth - 1).clamp_min(0).to(torch.int64)[:, None]
+            exp_parent = path_n.gather(1, last)[:, 0].to(torch.int64)
+            exp_action = path_a.gather(1, last)[:, 0].to(torch.int64)
+            prev_child = child[bidx, exp_parent, exp_action]
+            already = prev_child >= 0
 
         # ---- expansion: one exact env step per env.  The terminal outcome
         # comes from the step's own areas, not from a second scoring flood.
-        new_states, step_info = _step.step_states(node_states[bidx, exp_parent], exp_action)
+        with tracing.span("search.expand"):
+            new_states, step_info = _step.step_states(node_states[bidx, exp_parent], exp_action)
         slot = sim + 1
         new_logits, new_values, new_valid = masked_policy(new_states)
-        new_done = _state.game_ended(new_states)
-        win_black = torch.sign(
-            step_info.black_area.to(torch.float32) - step_info.white_area.to(torch.float32) - komi
-        )
-        outcome = torch.where(_state.turn(new_states) == 1, -win_black, win_black)
-        leaf_value = torch.where(new_done, outcome, new_values)
+        with tracing.span("search.expand"):
+            new_done = _state.game_ended(new_states)
+            win_black = torch.sign(
+                step_info.black_area.to(torch.float32) - step_info.white_area.to(torch.float32) - komi
+            )
+            outcome = torch.where(_state.turn(new_states) == 1, -win_black, win_black)
+            leaf_value = torch.where(new_done, outcome, new_values)
 
-        # Slot sim + 1 is new in this simulation, so an env that revisits a
-        # terminal child leaves it as it was made: zeros.
-        write = ~already
-        node_states[:, slot] = torch.where(write[:, None, None, None], new_states, 0)
-        node_done[:, slot] = write & new_done
-        node_value[:, slot] = torch.where(write, leaf_value, 0.0)
-        if use_logp:
-            prior[:, slot] = torch.where(write[:, None], torch.log_softmax(new_logits, dim=-1).to(wsum_dt),
-                                         neg_inf)
-            node_valid[:, slot] = write[:, None] & new_valid
-        else:
-            prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
-        child[bidx, exp_parent, exp_action] = torch.where(write, slot, prev_child)
-        # A revisited child is terminal, so its stored value is its exact
-        # outcome from its own mover's view: back that up again.
-        revisit_value = _treewalk.gather_node(node_value, prev_child.clamp_min(0))
-        leaf_value = torch.where(already, revisit_value, leaf_value)
+            # Slot sim + 1 is new in this simulation, so an env that revisits a
+            # terminal child leaves it as it was made: zeros.
+            write = ~already
+            node_states[:, slot] = torch.where(write[:, None, None, None], new_states, 0)
+            node_done[:, slot] = write & new_done
+            node_value[:, slot] = torch.where(write, leaf_value, 0.0)
+            if use_logp:
+                prior[:, slot] = torch.where(write[:, None], torch.log_softmax(new_logits, dim=-1).to(wsum_dt),
+                                             neg_inf)
+                node_valid[:, slot] = write[:, None] & new_valid
+            else:
+                prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
+            child[bidx, exp_parent, exp_action] = torch.where(write, slot, prev_child)
+            # A revisited child is terminal, so its stored value is its exact
+            # outcome from its own mover's view: back that up again.
+            revisit_value = _treewalk.gather_node(node_value, prev_child.clamp_min(0))
+            leaf_value = torch.where(already, revisit_value, leaf_value)
 
         # ---- backup along the path with a sign flip per ply: one batched
         # scatter-add per array.  The (node, action) pairs of a path are
         # distinct; entries past the path point at (0, 0) and add 0, so the
         # sums are exact and the same on every run.
-        on_path = depth_iota < sel_depth[:, None]
-        index = (bidx[:, None].expand(b, max_depth),
-                 torch.where(on_path, path_n, 0).to(torch.int64),
-                 torch.where(on_path, path_a, 0).to(torch.int64))
-        steps_up = sel_depth[:, None] - 1 - depth_iota
-        sign = torch.where(steps_up % 2 == 0, -1.0, 1.0)
-        visit.index_put_(index, on_path.to(visit_dt), accumulate=True)
-        wsum.index_put_(index, torch.where(on_path, sign * leaf_value[:, None], 0.0).to(wsum_dt),
-                        accumulate=True)
+        with tracing.span("search.backup"):
+            on_path = depth_iota < sel_depth[:, None]
+            index = (bidx[:, None].expand(b, max_depth),
+                     torch.where(on_path, path_n, 0).to(torch.int64),
+                     torch.where(on_path, path_a, 0).to(torch.int64))
+            steps_up = sel_depth[:, None] - 1 - depth_iota
+            sign = torch.where(steps_up % 2 == 0, -1.0, 1.0)
+            visit.index_put_(index, on_path.to(visit_dt), accumulate=True)
+            wsum.index_put_(index, torch.where(on_path, sign * leaf_value[:, None], 0.0).to(wsum_dt),
+                            accumulate=True)
 
     # ---- outputs.
-    cn, cq = root_candidate_stats()
-    final_score, max_n = candidate_scores(cq)
-    final_score = torch.where(cand_valid & (cn > 0), final_score, neg_inf)
-    actions = cand.gather(1, final_score.argmax(dim=1, keepdim=True))[:, 0]
+    with tracing.span("search.root"):
+        cn, cq = root_candidate_stats()
+        final_score, max_n = candidate_scores(cq)
+        final_score = torch.where(cand_valid & (cn > 0), final_score, neg_inf)
+        actions = cand.gather(1, final_score.argmax(dim=1, keepdim=True))[:, 0]
 
-    # Improved policy over the full action space: completedQ(a) = q(a) for
-    # visited root actions, the root's net value otherwise.
-    rn = visit[:, 0].to(torch.int32)
-    w0 = wsum[:, 0].to(torch.float32)
-    rq = torch.where(rn > 0, w0 / rn.clamp_min(1), root_value_net[:, None])
-    improved_logits = root_logits + _sigma(rq, max_n, c_visit, c_scale)
-    improved = torch.softmax(torch.where(valid_root, improved_logits, neg_inf), dim=-1)
-    # Root value: the visit-weighted mean of completed Q (the net's value
-    # with no visits).
-    total_n = rn.sum(dim=1)
-    root_q = torch.where(total_n > 0, w0.sum(dim=1) / total_n.clamp_min(1), root_value_net)
+        # Improved policy over the full action space: completedQ(a) = q(a) for
+        # visited root actions, the root's net value otherwise.
+        rn = visit[:, 0].to(torch.int32)
+        w0 = wsum[:, 0].to(torch.float32)
+        rq = torch.where(rn > 0, w0 / rn.clamp_min(1), root_value_net[:, None])
+        improved_logits = root_logits + _sigma(rq, max_n, c_visit, c_scale)
+        improved = torch.softmax(torch.where(valid_root, improved_logits, neg_inf), dim=-1)
+        # Root value: the visit-weighted mean of completed Q (the net's value
+        # with no visits).
+        total_n = rn.sum(dim=1)
+        root_q = torch.where(total_n > 0, w0.sum(dim=1) / total_n.clamp_min(1), root_value_net)
     return GumbelMCTSResult(
         actions=actions.to(torch.int32),
         improved_policy=improved,

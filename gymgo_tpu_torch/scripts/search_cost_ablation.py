@@ -47,15 +47,19 @@ REPEATS = 5
 
 def _kernel_launches(fn, iterations):
     """Device kernels launched per iteration by one run of ``fn`` (CUDA
-    only), from ``torch.profiler``."""
+    only), from ``torch.profiler``; the device-side images of the program's
+    layer spans (``gymgo.*``) are no kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gymgo_tpu_torch.utils.tracing import PREFIX
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / iterations
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and not ev.key.startswith(PREFIX)) / iterations
 
 
 def timed(fn, dev):

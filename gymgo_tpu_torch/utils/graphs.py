@@ -51,15 +51,17 @@ What a graph may hold:
   net's parameters, an optimizer's moments, a replay's rows) are read and
   written where they lay at the capture: they must stay the same tensors.
 
-The hand kernels' launch counters (``ops.cuda_lib.CudaKernelLib.launches``)
-count what a replay runs: the launches recorded during the capture are added
-again on every replay.
+Layers and counts (``utils.tracing``): each capture builds the graph's
+layer table from the spans its function opens, and each replay adds the
+counts taken during the capture (the hand kernels' launches,
+``ops.cuda_lib.CudaKernelLib.launches``, among them), so the counters count
+what a replay runs.  A replay runs under the spans ``graph.copy_in``,
+``graph.replay.<id>`` and ``graph.clone_out``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import inspect
 import time
 from typing import Callable, NamedTuple
@@ -68,9 +70,9 @@ import torch
 
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core import step as _step
-from gymgo_tpu_torch.ops import cuda_lib
 from gymgo_tpu_torch.ops.claim_flood import MAX_CLAIM_CELLS
 from gymgo_tpu_torch.ops.minmax_flood import MAX_MINMAX_CELLS
+from gymgo_tpu_torch.utils import tracing
 
 __all__ = ["compiled", "Compiled", "CapturedGraph", "capturable", "capturable_states", "register_key_part", "eager"]
 
@@ -171,50 +173,46 @@ def _graph_device(leaves) -> torch.device | None:
     return devices.pop()
 
 
-def _node_count(graph) -> int:
-    """The captured graph's node count, by libcuda's ``cuGraphGetNodes``
-    (the graph is kept after its capture for this: ``keep_graph``)."""
-    count = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
-                                                      ctypes.byref(count))
-    if err != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
-    return count.value
-
-
 class CapturedGraph:
     """One captured graph: a static input for each leaf of the arguments (a
     tensor for a tensor, the graph's own registered generator for a
-    generator), the static outputs, the launches of each kernel library it
-    holds, its node count and capture seconds."""
+    generator), the static outputs, its layer table (``utils.tracing``: the
+    graph's id, nodes, device operations, layers and captured counts) and
+    its capture seconds."""
 
-    def __init__(self, graph, static_in, static_out, launches, nodes, capture_seconds):
+    def __init__(self, graph, static_in, static_out, table: tracing.LayerTable, capture_seconds):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
-        self.launches = launches
-        self.nodes = nodes
+        self.table = table
         self.capture_seconds = capture_seconds
         self.replays = 0
+        self.span = f"graph.replay.{table.graph_id}"
+
+    @property
+    def nodes(self) -> int:
+        return self.table.nodes
 
     def replay(self, leaves):
         """Copy ``leaves`` in (a generator's state into the graph's own),
         replay, hand each generator the state the replay left, and return
         clones of the static outputs."""
         pairs = list(zip(self.static_in, leaves))
-        for static, x in pairs:
-            if isinstance(x, torch.Generator):
-                static.set_state(x.get_state())
-            else:
-                static.copy_(x)
-        self.graph.replay()
+        with tracing.span("graph.copy_in"):
+            for static, x in pairs:
+                if isinstance(x, torch.Generator):
+                    static.set_state(x.get_state())
+                else:
+                    static.copy_(x)
+        with tracing.span(self.span):
+            self.graph.replay()
         for static, x in pairs:
             if isinstance(x, torch.Generator):
                 x.set_state(static.get_state())
-        for lib, n in self.launches:
-            lib.launches += n
+        tracing.replayed(self.table)
         self.replays += 1
-        return _map(torch.Tensor.clone, self.static_out)
+        with tracing.span("graph.clone_out"):
+            return _map(torch.Tensor.clone, self.static_out)
 
 
 class _Call(NamedTuple):
@@ -250,10 +248,9 @@ def _capture(fn, call: _Call, device) -> tuple:
     bound = inspect.BoundArguments(call.bound.signature, dict(call.bound.arguments))
     for name in call.dynamic:
         bound.arguments[name] = _map(lambda _x: next(it), bound.arguments[name])
-    before = [(lib, lib.launches) for lib in cuda_lib.LIBRARIES]
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph):
+        with tracing.capturing(tracing.new_graph_id()) as capture, torch.cuda.graph(graph):
             static_out = fn(*bound.args, **bound.kwargs)
     except Exception as e:
         # a failed capture leaves the generators it drew from in capture mode:
@@ -262,15 +259,10 @@ def _capture(fn, call: _Call, device) -> tuple:
         default.graphsafe_set_state(default.clone_state())
         raise RuntimeError(f"capturing {getattr(fn, '__name__', fn)!r} into a CUDA graph failed (a host sync, "
                            f"or work on another stream or card, inside it?): {e} ({e.__context__})") from e
-    finally:
-        # a capture launches nothing: its launches are counted on each replay
-        launches = [(lib, lib.launches - n) for lib, n in before]
-        for lib, n in before:
-            lib.launches = n
-    nodes = _node_count(graph)
+    table = tracing.finish(capture, graph.raw_cuda_graph())
     graph.instantiate()
     seconds = time.perf_counter() - t0
-    return out, CapturedGraph(graph, static_in, static_out, [(l, n) for l, n in launches if n], nodes, seconds)
+    return out, CapturedGraph(graph, static_in, static_out, table, seconds)
 
 
 class Compiled:

@@ -26,6 +26,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from gymgo_tpu_torch import govars
+from gymgo_tpu_torch.utils import tracing
 
 __all__ = ["GTPEngine", "fixed_handicap_points", "PUCTMover", "GumbelMover", "make_net_genmove", "main"]
 
@@ -210,7 +211,12 @@ class GTPEngine:
     )
 
     def handle(self, line: str):
-        """Process one GTP line -> (response_text, is_error, should_quit)."""
+        """Process one GTP line -> (response_text, is_error, should_quit),
+        under the span ``gtp.handle``."""
+        with tracing.span("gtp.handle"):
+            return self._handle(line)
+
+    def _handle(self, line: str):
         line = line.split("#", 1)[0].strip()
         if not line:
             return None, False, False
@@ -386,6 +392,10 @@ class GTPEngine:
         return self._fmt(cmd_id, ""), False, False
 
     def _cmd_genmove(self, cmd_id, args):
+        with tracing.span("gtp.genmove"):
+            return self._genmove_reply(cmd_id, args)
+
+    def _genmove_reply(self, cmd_id, args):
         if not args or args[0].lower()[0] not in ("b", "w"):
             return self._fmt(cmd_id, "syntax error", True), True, False
         want = 1 if args[0].lower()[0] == "w" else 0
@@ -488,6 +498,10 @@ class PUCTMover:
         self._tree = None
 
     def __call__(self, state):
+        with tracing.span("mover"):
+            return self._move(state)
+
+    def _move(self, state):
         from gymgo_tpu_torch.rl.mcts import empty_tree, run_mcts
 
         st = _batch_of_one(state, self._device)
@@ -501,7 +515,8 @@ class PUCTMover:
             num_parallel=self._num_parallel, dirichlet_fraction=0.0, warm_tree=warm, return_tree=True,
         )
         self._tree = tree  # pre-move tree; the engine's on_move descends it
-        return int(res.root_visits[0].argmax())
+        with tracing.sync("mover"):
+            return int(res.root_visits[0].argmax())
 
 
 class GumbelMover:
@@ -525,10 +540,12 @@ class GumbelMover:
     def __call__(self, state):
         from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
 
-        gumbel = None if self._gumbel_source is None else self._gumbel_source().to(self._device)
-        res = run_gumbel_mcts(self._generator, _batch_of_one(state, self._device), self._net,
-                              num_simulations=self._simulations, komi=self._komi, gumbel=gumbel)
-        return int(res.actions[0])
+        with tracing.span("mover"):
+            gumbel = None if self._gumbel_source is None else self._gumbel_source().to(self._device)
+            res = run_gumbel_mcts(self._generator, _batch_of_one(state, self._device), self._net,
+                                  num_simulations=self._simulations, komi=self._komi, gumbel=gumbel)
+            with tracing.sync("mover"):
+                return int(res.actions[0])
 
 
 def make_net_genmove(checkpoint: str, board_size: int, channels: int,
@@ -581,7 +598,10 @@ def make_net_genmove(checkpoint: str, board_size: int, channels: int,
     greedy = compiled(masked_argmax, when=capturable_states)
 
     def pick(state):
-        return int(greedy(_batch_of_one(state, dev))[0])
+        with tracing.span("mover"):
+            chosen = greedy(_batch_of_one(state, dev))
+            with tracing.sync("mover"):
+                return int(chosen[0])
 
     return pick
 

@@ -1,0 +1,12 @@
+"""Device time a simulation of the batched search spends under the program's
+span of the expansion (``search.expand``: its env step and the new node's
+writes), per simulation of the traced searches, in ms."""
+
+from portbench.lib import layers
+
+
+def read(run):
+    s = layers.device_seconds(run.trace, "search.expand")
+    if s is None or not run.trace.units:
+        return None
+    return s / (run.trace.units * run.cell.traffic["simulations"]) * 1e3

@@ -32,7 +32,7 @@ from gymgo_tpu_torch.ops import cuda_lib
 from gymgo_tpu_torch.parallel.mesh import make_mesh
 from gymgo_tpu_torch.parallel.sharded_env import ShardedGoEnv
 from gymgo_tpu_torch.rl import learner as tlearner
-from gymgo_tpu_torch.utils import graphs
+from gymgo_tpu_torch.utils import graphs, tracing
 from torch_boards import midgame_states
 
 LOSS_ATOL, PARAM_ATOL = 1e-5, 2e-6
@@ -287,7 +287,8 @@ def test_a_replay_copies_its_inputs_in_counts_the_captured_launches_and_returns_
                 seen.append((static_in[1].clone(), torch.rand(2, generator=static_in[0])))
 
         static_out = {"y": torch.arange(3.0), "n": None}
-        captured = graphs.CapturedGraph(Graph(), static_in, static_out, [(lib, 2)], 7, 0.5)
+        table = tracing.LayerTable(tracing.new_graph_id(), 7, 5, [("", 0, 4)], {lib.counter: 2}, True)
+        captured = graphs.CapturedGraph(Graph(), static_in, static_out, table, 0.5)
         caller = torch.Generator().manual_seed(1)
         out = captured.replay([caller, torch.full((3,), 4.0)])
         eager = torch.Generator().manual_seed(1)
@@ -297,8 +298,9 @@ def test_a_replay_copies_its_inputs_in_counts_the_captured_launches_and_returns_
         assert out["n"] is None and torch.equal(out["y"], static_out["y"]) and out["y"] is not static_out["y"]
         captured.replay([caller, torch.ones(3)])
         assert lib.launches == 4 and captured.replays == 2 and torch.equal(seen[1][0], torch.ones(3))
+        assert captured.nodes == 7 and captured.table.ops == 5
     finally:
-        cuda_lib.LIBRARIES.remove(lib)
+        del tracing.counters[lib.counter]
 
 
 def test_capturable_and_the_envs_compiled_flags():

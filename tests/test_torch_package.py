@@ -54,7 +54,7 @@ def test_every_module_is_found():
                  "benchmarks.native_batch", "parallel", "parallel.mesh", "parallel.sharded_env",
                  "scripts.multiproc_worker", "scripts.multihost_bench", "scripts.scaling_proxy",
                  "scripts.fuzz_parity", "scripts.measure_convergence", "scripts.search_cost_ablation",
-                 "scripts.walk_depth_study"):
+                 "scripts.walk_depth_study", "scripts.replay_gaps"):
         assert f"gymgo_tpu_torch.{name}" in names
 
 
