@@ -7,8 +7,9 @@ Phases 3-7 run the default route (the bundle flood, ``GYMGO_FLOOD=bitpack``),
 phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
 
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: nvcc builds the three flood kernels (bundle, min/max, claim) from
-     ``gymgo_tpu_torch/csrc``, in parallel, and prints each one's ptxas line;
+  2. build: nvcc builds the three flood kernels (bundle, min/max, claim) and
+     the served net's fused GroupNorm kernel from ``gymgo_tpu_torch/csrc``, in
+     parallel, and prints each one's ptxas line;
   3. kernel vs plain: the bundle kernel's int32 word equals the plain PyTorch
      version's bit for bit, on random boards at N = 5, 9, 19, 22, on serpentine,
      staircase, spiral, comb, one-colour, empty and checkerboard boards, on
@@ -245,11 +246,23 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      both kernels timed on the window's boards beside their byte bounds and
      plain times, ``score.areas`` against the CPU; (d) ``GoEnv`` (torch on
      the card) and ``gogame.next_state`` at 37x37 against the CPU.
+ 29. the served net's fused GroupNorm kernel at the 20-block net's shapes
+     (19x19, C = 256, bfloat16, channels-last): (a) at B = 256 and B = 1,
+     without and with the residual, the kernel within 1 ulp of the plain
+     version (the library's group_norm, relu and add) on the same tensors,
+     the share of unequal elements counted; kernel, plain version and the
+     library's NCHW operations (as the net ran before) timed in CUDA graphs
+     of 39 calls, beside the byte bound (x read, y written, the residual
+     read); (b) the 20-block net built as the benchmark builds it (``meta``,
+     ``to_empty``, ``copy_``): its convolution kernels channels-last, 39
+     launches a forward at B = 256 and B = 1 (the counter set to 0 first),
+     the served forward against the library's NCHW forward on the same
+     weights, and both forwards timed in CUDA graphs.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
 20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
 measurement layer, 25-26 the compiled forms, 27 the minmax route compiled,
-28 boards over 32x32;
+28 boards over 32x32, 29 the served net's norm kernel;
 the launch counts are set to 0 before the search, each match, the training
 run, the ``gogame`` game, the ``GoEnv`` games, phase 20, each sharded
 rollout of 22a, each ablation's windows, each layout's search, phase 25's
@@ -257,7 +270,7 @@ compiled windows and phase 26's searches, and read after; phase 27 reads
 them around each path it drives, as does phase 28.  After phase 15, a replay of the recipe's
 size takes one add of more rows than its capacity (81,920 into 65,536):
 every slot must hold one whole row, the last 65,536 in order.
-The line before the nvidia-smi line is a JSON object with the three kernels'
+The line before the nvidia-smi line is a JSON object with the four kernels'
 numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
 exits non-zero without printing a result when CUDA is unavailable.
 """
@@ -405,6 +418,34 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graphed_ms(fn, calls, reps):
+    """Mean device ms per call of ``fn``, by CUDA events around ``reps``
+    replays of one CUDA graph of ``calls`` calls (warmed up on a side stream
+    first, as graph capture asks): the served net replays its norms so, and
+    a graph leaves out the host's launch cost that an eager loop at batch 1
+    would time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 @contextlib.contextmanager
@@ -2614,6 +2655,118 @@ def big_boards_path(dev, libs):
     return out
 
 
+def group_norm_path(dev, lib):
+    """Phase 29: the served net's fused GroupNorm kernel (``lib``, its
+    library) against its plain version and timed at the 20-block net's
+    shapes; the 20-block net's launches a forward and its served forward
+    against the library's.  Returns the kernel's numbers by case
+    (``b256``, ``b256_residual``, ``b1``, ``b1_residual``) and the launches
+    a forward by batch."""
+    from gymgo_tpu_torch.models.az_net import AZNet, AZNetConfig
+    from gymgo_tpu_torch.ops import group_norm_act as gna
+
+    N, C, GROUPS, EPS, CALLS = 19, 256, 8, 1e-6, 39  # CALLS: the norms of a 20-block evaluation
+    t_phase = time.perf_counter()
+    out = {"cases": {}}
+    # (a) the kernel against its plain version on the same channels-last tensors, then timed
+    for B in (256, 1):
+        g = torch.Generator(device=dev).manual_seed(SEED + 29 + B)
+        # a convolution's output: a per-channel offset and scale
+        h = (torch.randn(B, C, N, N, device=dev, generator=g) * (0.5 + torch.rand(C, 1, 1, device=dev, generator=g))
+             + torch.randn(C, 1, 1, device=dev, generator=g)).bfloat16()
+        res = torch.randn(B, C, N, N, device=dev, generator=g).bfloat16()
+        weight = (1 + 0.1 * torch.randn(C, device=dev, generator=g)).bfloat16()
+        bias = (0.1 * torch.randn(C, device=dev, generator=g)).bfloat16()
+        h_cl, res_cl = (t.contiguous(memory_format=torch.channels_last) for t in (h, res))
+        act_bytes = h.numel() * h.element_size()
+        for r, r_cl in ((None, None), (res, res_cl)):
+            key = f"b{B}" + ("" if r is None else "_residual")
+            lib.launches = 0
+            got = gna.group_norm_act_cuda(h_cl, GROUPS, weight, bias, EPS, r_cl)
+            if lib.launches != 1:
+                fail(f"29a {key}: {lib.launches} launches for one call")
+            want = gna.group_norm_act_plain(h_cl, GROUPS, weight, bias, EPS, r_cl)
+            # 1 ulp of bfloat16 at each element's magnitude: the output's, or the residual's where it is larger
+            scale = want.float().abs() if r is None else torch.maximum(want.float().abs(), r.float().abs())
+            ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(scale.clamp_min(1.0))))
+            off = (got.float() - want.float()).abs()
+            ulps = float((off / ulp).max())
+            unequal = float((got != want).float().mean())
+            if not got.is_contiguous(memory_format=torch.channels_last) or ulps > 1:
+                fail(f"29a {key}: the kernel is {ulps} ulps from the plain version (unequal share {unequal})")
+            if not torch.equal(gna.group_norm_act_cuda(h_cl, GROUPS, weight, bias, EPS, r_cl), got):
+                fail(f"29a {key}: two calls of the kernel differ")
+            ms = [graphed_ms(lambda: gna.group_norm_act_cuda(h_cl, GROUPS, weight, bias, EPS, r_cl), CALLS, 50)
+                  for _ in range(2)]
+            plain_ms = graphed_ms(lambda: gna.group_norm_act_plain(h_cl, GROUPS, weight, bias, EPS, r_cl), CALLS, 10)
+            library_ms = graphed_ms(lambda: gna.group_norm_act_plain(h, GROUPS, weight, bias, EPS, r), CALLS, 10)
+            passes = 2 if r is None else 3  # x read and y written, and the residual read
+            bound_ms = passes * act_bytes / H100_BYTES_PER_S * 1e3
+            out["cases"][key] = {"ms": min(ms), "ms_again": max(ms), "plain_ms": plain_ms,
+                                 "library_ms": library_ms, "bound_ms": bound_ms, "bytes": passes * act_bytes,
+                                 "max_abs_err": float(off.max()), "max_ulps": ulps, "unequal_share": unequal}
+            print(f"[29a group norm {key}] 19x19 C={C} bf16 channels-last: kernel within {ulps:.0f} ulp of the "
+                  f"plain version (max |diff| {float(off.max())}, unequal share {unequal:.3e}); graphs of {CALLS} "
+                  f"calls, ms a call: kernel {ms[0]:.5f} (again {ms[1]:.5f}), plain version (NHWC) {plain_ms:.5f}, "
+                  f"library (NCHW group_norm, relu{'' if r is None else ', add'}) {library_ms:.5f}, byte bound "
+                  f"{bound_ms:.6f} ({passes * act_bytes} bytes at 3.35 TB/s)", flush=True)
+        del h, res, h_cl, res_cl
+
+    # (b) the 20-block net as the benchmark builds it: launches a forward, served against the library
+    cfg = AZNetConfig(board_size=N, channels=C, blocks=19, policy_channels=2, value_channels=1)
+    with torch.device("meta"):
+        net = AZNet(cfg)
+    net = net.to_empty(device=dev).eval().requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() > 1:
+                p.copy_(torch.randn(p.shape, device=dev, generator=g) * p[0].numel() ** -0.5)
+            else:
+                p.copy_(1 + 0.1 * torch.randn(p.shape, device=dev, generator=g) if name.endswith("norm.weight")
+                        else 0.1 * torch.randn(p.shape, device=dev, generator=g))
+    if not all(m.weight.is_contiguous(memory_format=torch.channels_last)
+               for m in net.modules() if isinstance(m, torch.nn.Conv2d)):
+        fail("29b: the served net's convolution kernels are not channels-last")
+    before = AZNet(cfg, torch.bfloat16).to(dev).eval().requires_grad_(False)  # contiguous kernels, as before
+    before.load_state_dict(net.state_dict())
+
+    def library_forward(x):
+        with torch.enable_grad():  # autograd on: the library's NCHW operations
+            return before(x)
+
+    states = torch.randint(0, 2, (256, 6, N, N), generator=g, device=dev, dtype=torch.int64).to(torch.int8)
+    out["launches"] = {}
+    with torch.no_grad():
+        for B in (256, 1):
+            x = states[:B].clone()
+            net(x)  # cuDNN's choice of algorithms
+            torch.cuda.synchronize()
+            lib.launches = 0
+            logits, value = net(x)
+            out["launches"][B] = lib.launches
+            if lib.launches != CALLS:
+                fail(f"29b: the 20-block forward at B = {B} launched the norm kernel {lib.launches} times, "
+                     f"expected {CALLS}")
+            lib_logits, lib_value = library_forward(x)
+            if lib.launches != CALLS:
+                fail("29b: the library's forward launched the norm kernel")
+            gap = float((logits - lib_logits).abs().max()) / float(lib_logits.max() - lib_logits.min())
+            value_gap = float((value - lib_value).abs().max())
+            if gap > 0.02 or value_gap > 0.02:
+                fail(f"29b: served and library forwards differ at B = {B}: logits {gap} of their range, "
+                     f"value {value_gap}")
+            served_ms = graphed_ms(lambda: net(x), 1, 20)
+            library_ms = graphed_ms(lambda: library_forward(x), 1, 20)
+            out[f"forward_b{B}"] = {"served_ms": served_ms, "library_ms": library_ms}
+            print(f"[29b 20-block net B={B}] built on meta, to_empty, copy_: kernels channels-last; {CALLS} norm "
+                  f"launches a forward; served against the library's NCHW forward: logits {gap:.4f} of their "
+                  f"range, value {value_gap:.4f}; graphed forward {served_ms:.4f} ms served, {library_ms:.4f} ms "
+                  f"library", flush=True)
+    print(f"[29 group norm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def kernel_counts(libs):
     """The launch counts of the bundle, min/max and claim libraries ``libs``,
     by name."""
@@ -2649,6 +2802,7 @@ def main() -> int:
     from gymgo_tpu_torch.env.batch_env import rollout
     from gymgo_tpu_torch.ops import bundle_flood as bf
     from gymgo_tpu_torch.ops import claim_flood as cf
+    from gymgo_tpu_torch.ops import group_norm_act as gna
     from gymgo_tpu_torch.ops import minmax_flood as mf
 
     tflood.set_flood_route("bitpack")  # phases 3-7 run the default route
@@ -2668,7 +2822,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)  # the kernels phases 12-26 count
-    built = libs + (cf.CLAIM_FLOOD,)
+    built = libs + (cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(built)) as ex:
         list(ex.map(lambda lib: lib.function(), built))
@@ -2870,6 +3024,7 @@ def main() -> int:
     compiled_search_launches = phase("26", compiled_search_path, dev, states, *libs)
     claim = phase("27", minmax_compiled_path, dev, states, built)
     big = phase("28", big_boards_path, dev, built)
+    norm = phase("29", group_norm_path, dev, gna.GROUP_NORM_ACT)
     print(f"[seconds] each phase's: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
 
@@ -2958,6 +3113,27 @@ def main() -> int:
         "bound_ms_181x181": big[181]["claim_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "group_norm_act",
+        "route": "cuda",
+        "source": "gymgo_tpu_torch/csrc/group_norm_act.cu",
+        "replaces": "none: the counterpart of XLA's fusion of GroupNorm, relu and the residual add "
+                    "(gymgo_tpu/models/az_net.py, ResBlock)",
+        # a 20-block evaluation (29b); the cases are 19x19, C = 256, bfloat16, in graphs of 39 calls (29a)
+        "launches": norm["launches"][256],
+        "launches_b1": norm["launches"][1],
+        "max_abs_err": max(c["max_abs_err"] for c in norm["cases"].values()),
+        "max_ulps": max(c["max_ulps"] for c in norm["cases"].values()),
+        "unequal_share": {k: c["unequal_share"] for k, c in norm["cases"].items()},
+        "ms": norm["cases"]["b256"]["ms"],
+        "plain_ms": norm["cases"]["b256"]["plain_ms"],
+        # x read and y written once (2 bytes each per element), and the residual read
+        "bound_ms": norm["cases"]["b256"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": norm["cases"]["b256"]["library_ms"],
+        **{f"{field}_{key}": c[field] for key, c in norm["cases"].items() if key != "b256"
+           for field in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "forward_ms": {f"{k}_{f}": v for k, fw in norm.items() if k.startswith("forward_") for f, v in fw.items()},
     }]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

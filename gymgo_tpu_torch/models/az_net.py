@@ -25,6 +25,15 @@ Where it differs from the flax module, and why the numbers still agree:
 The convolutions and dense layers are PyTorch's: the JAX package computes them
 with XLA outside any kernel of its own.  ``param_shardings`` is the
 tensor-parallel rule of the JAX package in this layout.
+
+Served on the card (a CUDA forward that autograd does not record: search,
+self-play, evaluation, GTP), the tower keeps its activations channels-last
+(NHWC in memory, as the flax module), and each GroupNorm runs with the relu
+and the residual add that follow it as one hand kernel
+(``ops/group_norm_act.py``), the counterpart of XLA's fusion of those blocks.
+A serving module holds its convolution kernels channels-last for that path,
+so cuDNN converts no layout.  Every other forward (the CPU, and training with
+autograd) runs the library's operations on NCHW activations.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gymgo_tpu_torch import govars
+from gymgo_tpu_torch.ops.group_norm_act import group_norm_act_cuda, group_norm_act_plain
 
 __all__ = ["AZNetConfig", "ResBlock", "AZNet", "init_params", "acting_copy", "refresh_", "param_shardings",
            "shard_state_dict"]
@@ -59,14 +69,18 @@ def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
-def _conv(conv: nn.Conv2d, x):
-    """``conv`` in the dtype of ``x`` (its parameters cast at the call)."""
+def _conv(conv: nn.Conv2d, x, layout: torch.memory_format):
+    """``conv`` in the dtype of ``x`` (its parameters cast at the call), its
+    kernel in ``layout``, the layout of ``x``."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, padding=conv.padding)
+    return F.conv2d(x, conv.weight.to(x.dtype, memory_format=layout), bias, padding=conv.padding)
 
 
-def _norm(norm: nn.GroupNorm, x):
-    return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype), norm.bias.to(x.dtype), norm.eps)
+def _norm_act(norm: nn.GroupNorm, h, served: bool, residual=None):
+    """``relu(norm(h) [+ residual])``: the hand kernel when ``served``, else
+    the library's operations."""
+    fn = group_norm_act_cuda if served else group_norm_act_plain
+    return fn(h, norm.num_groups, norm.weight.to(h.dtype), norm.bias.to(h.dtype), norm.eps, residual)
 
 
 def _dense(dense: nn.Linear, x):
@@ -81,10 +95,10 @@ class ResBlock(nn.Module):
         self.conv_1 = _conv3x3(channels, channels)
         self.norm_1 = nn.GroupNorm(_GROUPS, channels, eps=_GN_EPS)
 
-    def forward(self, x):
-        h = F.relu(_norm(self.norm_0, _conv(self.conv_0, x)))
-        h = _norm(self.norm_1, _conv(self.conv_1, h))
-        return F.relu(x + h)
+    def forward(self, x, served: bool = False):
+        layout = torch.channels_last if served else torch.contiguous_format
+        h = _norm_act(self.norm_0, _conv(self.conv_0, x, layout), served)
+        return _norm_act(self.norm_1, _conv(self.conv_1, h, layout), served, residual=x)
 
 
 class AZNet(nn.Module):
@@ -93,7 +107,8 @@ class AZNet(nn.Module):
     player to move in a canonical state.
 
     Parameters are held in ``param_dtype`` (default ``config.dtype``: a
-    serving module); the last dense layer's in float32."""
+    serving module, whose convolution kernels are channels-last); the last
+    dense layer's in float32."""
 
     def __init__(self, config: AZNetConfig, param_dtype: torch.dtype | None = None):
         super().__init__()
@@ -109,15 +124,19 @@ class AZNet(nn.Module):
         self.value_out = nn.Linear(c, 1)
         self.to(param_dtype or config.dtype)
         self.value_out.to(torch.float32)
+        if param_dtype is None:
+            self.to(memory_format=torch.channels_last)
 
     def forward(self, states: torch.Tensor):
-        x = states.to(self.config.dtype)
-        x = F.relu(_norm(self.stem_norm, _conv(self.stem, x)))
+        served = states.is_cuda and not torch.is_grad_enabled()
+        layout = torch.channels_last if served else torch.contiguous_format
+        x = states.to(self.config.dtype, memory_format=layout)
+        x = _norm_act(self.stem_norm, _conv(self.stem, x, layout), served)
         for block in self.blocks:
-            x = block(x)
-        p = F.relu(_conv(self.policy_conv, x)).flatten(1)
+            x = block(x, served)
+        p = F.relu(_conv(self.policy_conv, x, layout)).flatten(1)
         policy_logits = _dense(self.policy_out, p)
-        v = F.relu(_conv(self.value_conv, x)).flatten(1)
+        v = F.relu(_conv(self.value_conv, x, layout)).flatten(1)
         v = F.relu(_dense(self.value_hidden, v))
         value = torch.tanh(_dense(self.value_out, v.to(torch.float32)))[:, 0]
         return policy_logits.to(torch.float32), value

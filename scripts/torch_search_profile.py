@@ -18,7 +18,7 @@ turns (A B B A) inside one process:
 For each: wall ms per simulation, host syncs per simulation (PyTorch's sync
 debug mode), kernel launches and device-busy time per simulation
 (torch.profiler).  Then the parts alone at the same B: the net's forward in
-bfloat16 (contiguous and channels-last) and float32, ``step_states``, the
+bfloat16 and float32, ``step_states``, the
 tree bookkeeping of one simulation (a search with a net and a step that cost
 nothing is not possible, so: the search's wall time minus the two), and
 ``areas`` by the bundle kernel against the host-synced ``flood_or`` it
@@ -157,10 +157,6 @@ def main(argv=None) -> int:
     x = roots
     with torch.no_grad():
         fwd16 = chip_smoke.time_ms(lambda: net16(x), 20)
-        net_cl = load_aznet_npz(chip_smoke.NET_19, device=dev, dtype=torch.bfloat16)
-        net_cl = net_cl.to(memory_format=torch.channels_last)
-        fwd16_cl = chip_smoke.time_ms(lambda: net_cl(x), 20)
-        close = float((net_cl(x)[0] - net16(x)[0]).abs().max())
         fwd32 = chip_smoke.time_ms(lambda: net32(x), 20)
         fwd16_wall = wall_ms(lambda: net16(x), 20)
     acts = uniform_random_actions(gen, x)
@@ -175,7 +171,7 @@ def main(argv=None) -> int:
     new_syncs = len(caught)
     built = min(variants[0].ms)
     print(f"[parts] B={B}: net forward bfloat16 {fwd16:.3f} ms device ({fwd16_wall:.3f} ms wall), "
-          f"channels-last weights {fwd16_cl:.3f} ms (max |diff| logits {close:.4f}), float32 {fwd32:.3f} ms; "
+          f"float32 {fwd32:.3f} ms; "
           f"step_states {step_dev:.3f} ms device, {step_wall:.3f} ms wall, {new_syncs} host syncs; with the old "
           f"capture flood {old_wall:.3f} ms wall, {old_syncs} host syncs; tree bookkeeping (search minus net "
           f"minus step, wall) {built - fwd16_wall - step_wall:.3f} ms of {built:.3f} ms/simulation", flush=True)

@@ -1,7 +1,8 @@
 """The port on a CUDA card: each flood kernel (bundle, min/max, claim) against
 its plain version, on the rollout of its route, and on bad input, the min/max
 and claim kernels up to 181x181; the stateless step, the area score,
-the net and the search against the CPU plain path; the step's ablation
+the net and the search against the CPU plain path; the served net's fused
+GroupNorm kernel against the library's operations; the step's ablation
 switches and ``measure_convergence``'s kernel check; the compiled forms
 (CUDA graphs) against their eager functions, the search, the self-play move
 and the match ply among them.  Imports no JAX, so it runs on a machine without
@@ -1128,3 +1129,167 @@ def test_compiled_window_and_match_equal_eager(cuda_device):
     (rc, sc), (re, se) = results
     assert torch.equal(sc, se) and all(torch.equal(x, y) for x, y in zip(rc, re))
     assert any(g.replays for g in evaluate._ply.graphs.values())
+
+
+def _gna_case(device, dtype, b, n, c, seed):
+    """A convolution-like activation (per-channel offset and scale), a
+    residual, GroupNorm's weight and bias; the activations channels-last."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = (torch.randn(b, c, n, n, device=device, generator=g) * (0.5 + torch.rand(c, 1, 1, device=device, generator=g))
+         + torch.randn(c, 1, 1, device=device, generator=g)).to(dtype)
+    res = torch.randn(b, c, n, n, device=device, generator=g).to(dtype)
+    weight = (1 + 0.1 * torch.randn(c, device=device, generator=g)).to(dtype)
+    bias = (0.1 * torch.randn(c, device=device, generator=g)).to(dtype)
+    return tuple(t.contiguous(memory_format=torch.channels_last) for t in (h, res)) + (weight, bias)
+
+
+def _gna_exact(h, weight, bias, eps, res):
+    """The kernel's arithmetic with float64 statistics: mean and rstd rounded
+    to the working type as the library keeps them, then its float32 affine,
+    roundings and relu.  Also the largest term of each element's sum."""
+    b, c = h.shape[:2]
+    hg = h.double().reshape(b, 8, -1)
+    mean, var = hg.mean(-1).float(), hg.var(-1, unbiased=False)
+    rstd = (var.float() + eps).rsqrt().to(h.dtype).float()
+    mean = mean.to(h.dtype).float()
+    a = (rstd.repeat_interleave(c // 8, 1) * weight.float())[:, :, None, None]
+    shift = (-a * mean.repeat_interleave(c // 8, 1)[:, :, None, None] + bias.float()[:, None, None])
+    y = (h.float() * a + shift).to(h.dtype)
+    terms = torch.maximum((h.float() * a).abs(), shift.abs())
+    if res is not None:
+        y = (res.float() + y.float()).to(h.dtype)
+        terms = torch.maximum(terms, res.float().abs())
+    return torch.relu(y), torch.maximum(terms, y.float().abs())
+
+
+FP32_GNA_ULPS = 8  # the float32 kernel's distance from the float64-statistics result, in ulps of the largest term
+
+
+def _ulp(dtype, magnitude):
+    return torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(magnitude.clamp_min(1.0))))
+
+
+@pytest.mark.parametrize("c", [32, 128, 256])
+@pytest.mark.parametrize("n", [9, 19, 64])
+@pytest.mark.parametrize("b", [1, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_group_norm_act_kernel_matches_plain(dtype, b, n, c, cuda_device):
+    """bfloat16: each element within 1 ulp of the plain path (the library's
+    group_norm, relu and add), or of the same arithmetic with float64
+    statistics where the library's own float32 sums lie further off (64x64 at
+    batch 256, which takes the streamed form).  float32: 1 ulp of the output
+    is below the error of any float32 sum of the statistics (the plain path
+    itself reads 2-6 ulps of each element's largest term from the float64
+    statistics on these inputs), so the kernel is held within 8 ulps of the
+    largest term of the float64-statistics result; the plain path's reading
+    is printed beside it."""
+    from gymgo_tpu_torch.ops import group_norm_act as gna
+
+    h, res, weight, bias = _gna_case(cuda_device, dtype, b, n, c, b * n + c)
+    for r in (None, res):
+        launches = gna.GROUP_NORM_ACT.launches
+        got = gna.group_norm_act_cuda(h, 8, weight, bias, 1e-6, r)
+        assert gna.GROUP_NORM_ACT.launches == launches + 1
+        assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+        want = gna.group_norm_act_plain(h, 8, weight, bias, 1e-6, r)
+        assert torch.equal(gna.group_norm_act_cuda(h, 8, weight, bias, 1e-6, r), got)  # the same sums each call
+        exact, terms = _gna_exact(h, weight, bias, 1e-6, r)
+        off = (got.float() - want.float()).abs()
+        got_err = ((got.float() - exact.float()).abs() / _ulp(dtype, terms)).max().item()
+        want_err = ((want.float() - exact.float()).abs() / _ulp(dtype, terms)).max().item()
+        print(f"{dtype} B={b} N={n} C={c} residual={r is not None}: unequal {(got != want).float().mean().item():.3e}"
+              f", max {(off / _ulp(dtype, want.float().abs())).max().item():.1f} ulps of the plain path; from the "
+              f"float64 statistics, at the largest term: kernel {got_err:.1f}, plain {want_err:.1f} ulps")
+        if dtype == torch.bfloat16:
+            scale = want.float().abs() if r is None else torch.maximum(want.float().abs(), r.float().abs())
+            near_exact = (got.float() - exact.float()).abs() <= _ulp(dtype, scale)
+            assert ((off <= _ulp(dtype, scale)) | near_exact).all()
+        else:
+            assert got_err <= FP32_GNA_ULPS
+        assert (got == 0).any() and (got > 0).any()
+
+
+def test_group_norm_act_kernel_rejects_bad_input(cuda_device):
+    from gymgo_tpu_torch.ops import group_norm_act as gna
+
+    h, res, weight, bias = _gna_case(cuda_device, torch.bfloat16, 2, 9, 32, 0)
+    with pytest.raises(ValueError, match="channels-last"):
+        gna.group_norm_act_cuda(h.contiguous(), 8, weight, bias, 1e-6)
+    with pytest.raises(TypeError):
+        gna.group_norm_act_cuda(h.half(), 8, weight.half(), bias.half(), 1e-6)
+    with pytest.raises(ValueError, match="weight"):
+        gna.group_norm_act_cuda(h, 8, weight.float(), bias, 1e-6)
+    with pytest.raises(ValueError, match="residual"):
+        gna.group_norm_act_cuda(h, 8, weight, bias, 1e-6, res.contiguous())
+    with pytest.raises(ValueError, match="groups"):
+        gna.group_norm_act_cuda(h, 7, weight, bias, 1e-6)
+
+
+def _agz20_served_net(device):
+    """The 20-block AlphaGo Zero net (256 filters) in bfloat16, built as the
+    benchmark builds it: on ``meta``, ``to_empty``, then ``copy_`` into each
+    parameter."""
+    from gymgo_tpu_torch.models.az_net import AZNet, AZNetConfig
+
+    cfg = AZNetConfig(board_size=19, channels=256, blocks=19, policy_channels=2, value_channels=1)
+    with torch.device("meta"):
+        net = AZNet(cfg)
+    net = net.to_empty(device=device).eval().requires_grad_(False)
+    g = torch.Generator(device=device).manual_seed(5)
+    for name, p in net.named_parameters():
+        if p.dim() > 1:
+            p.copy_(torch.randn(p.shape, device=device, generator=g) * p[0].numel() ** -0.5)
+        else:
+            p.copy_(1 + 0.1 * torch.randn(p.shape, device=device, generator=g) if name.endswith("norm.weight") else
+                    0.1 * torch.randn(p.shape, device=device, generator=g))
+    return net
+
+
+def test_served_20_block_net_converts_no_layout_and_launches_39_norms(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    from gymgo_tpu_torch.ops import group_norm_act as gna
+
+    net = _agz20_served_net(cuda_device)
+    assert all(m.weight.is_contiguous(memory_format=torch.channels_last)
+               for m in net.modules() if isinstance(m, torch.nn.Conv2d))
+    states = _midgame(cuda_device, 19, 256, 120)
+    with torch.no_grad():
+        net(states)  # cuDNN's choice of algorithms, outside the profile
+        torch.cuda.synchronize()
+        launches = gna.GROUP_NORM_ACT.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            logits, value = net(states)
+            torch.cuda.synchronize()
+    assert gna.GROUP_NORM_ACT.launches == launches + 39
+    names = [e.key for e in prof.key_averages()]
+    assert any("resident_kernel" in k for k in names)
+    assert not [k for k in names if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    # the library's NCHW forward, as autograd records it, on the same weights
+    with torch.enable_grad():
+        launches = gna.GROUP_NORM_ACT.launches
+        plain_logits, plain_value = net(states)
+        assert gna.GROUP_NORM_ACT.launches == launches
+    assert (logits - plain_logits).abs().max() <= 0.02 * (plain_logits.max() - plain_logits.min())
+    assert (value - plain_value).abs().max() <= 0.02
+
+
+def test_served_forward_follows_refreshed_weights(cuda_device):
+    from gymgo_tpu_torch.models.az_net import AZNetConfig, acting_copy, init_params, refresh_
+
+    cfg = AZNetConfig(board_size=9, channels=32, blocks=2, policy_channels=2, value_channels=1)
+    master = init_params(torch.Generator(device=cuda_device).manual_seed(9), cfg)
+    served = acting_copy(master)
+    states = _midgame(cuda_device, 9, 16, 30)
+    with torch.no_grad():
+        before = served(states)
+        for p in master.parameters():
+            p.add_(0.2 * torch.randn(p.shape, device=cuda_device, generator=torch.Generator(device=cuda_device)
+                                     .manual_seed(p.numel())))
+        refresh_(served, master)
+        after = served(states)
+        fresh = acting_copy(master)(states)
+    assert not torch.equal(before[0], after[0])
+    assert all(torch.equal(x, y) for x, y in zip(after, fresh))
+    assert all(w.is_contiguous(memory_format=torch.channels_last)
+               for w in (m.weight for m in served.modules() if isinstance(m, torch.nn.Conv2d)))
