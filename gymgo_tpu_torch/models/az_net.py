@@ -149,7 +149,11 @@ def init_params(generator: torch.Generator, config: AZNetConfig) -> AZNet:
     (a normal truncated at two standard deviations, rescaled to variance
     1 / fan_in, fan_in = kh * kw * in for a conv and ``in`` for a dense
     layer), zero biases, GroupNorm scale 1 and bias 0."""
-    net = AZNet(config, torch.float32).to(generator.device)
+    return _init_(AZNet(config, torch.float32).to(generator.device), generator)
+
+
+def _init_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """``init_params``'s draws into ``net``'s parameters, in place."""
     for name, p in net.named_parameters():
         if p.dim() > 1:
             std = (1.0 / p[0].numel()) ** 0.5 / _TRUNC_STD

@@ -4,6 +4,7 @@
 from gymgo_tpu_torch.rl.evaluate import MatchResult, play_match, with_pass_to_win
 from gymgo_tpu_torch.rl.gumbel_mcts import (
     GumbelMCTSResult,
+    LearnedMCTSResult,
     make_gumbel_mcts_policy,
     run_gumbel_mcts,
     seq_halving_schedule,

@@ -10,10 +10,27 @@ deterministic completed-Q rule.  The returned ``improved_policy`` =
 softmax(logits + sigma(completedQ)) is the AZ training target; ``actions`` is
 the halving winner (no sampling noise beyond the root Gumbels).
 
-The simulator is the exact env step (one ``step_states`` per simulation, so
-one launch of the flood kernel of the step and one of its seed), the whole
-search is batched over envs, and the tree lives in fixed-shape tensors: node 0
-is the root and simulation i expands slot i + 1.
+The network chooses the simulator, and both run the same root candidates,
+halving, interior scores, walk, backup and outputs; they differ only in the
+expansion and the masks:
+
+* An ``AZNet`` (any ``net(canonical_states) -> (logits, value)``): the
+  simulator is the exact env step (one ``step_states`` per simulation, so one
+  launch of the flood kernel of the step and one of its seed); the tree
+  stores each node's board, masks illegal moves at every node, and a node
+  where the game ended is terminal, valued by its outcome.
+* A learned model (``models.muzero_net.MuZeroNet``, anything with
+  ``represent``, ``dynamics`` and ``predict``): Gumbel MuZero.  The root is
+  ``h`` then ``f``; simulation i gathers the hidden state of the expanded
+  edge's parent from the tree's store of hidden states, applies ``g`` for the
+  edge's action, writing into the store's slot i + 1, then ``f``.  As MuZero
+  does, only the root is masked to legal moves (the environment is not
+  queried inside the tree): below it every action is selectable, no node is
+  terminal and a leaf's value is ``f``'s.  ``LearnedMCTSResult`` adds each
+  slot's parent, action, value and logits.
+
+The whole search is batched over envs, and the tree lives in fixed-shape
+tensors: node 0 is the root and simulation i expands slot i + 1.
 
 Tree layouts.  The default stores visits as int32 and priors and value sums as
 float32.  ``GYMGO_GUMBEL_PACK`` (read at import, a comma list, as in the JAX
@@ -57,8 +74,8 @@ from gymgo_tpu_torch.rl import treewalk as _treewalk
 from gymgo_tpu_torch.utils import tracing
 from gymgo_tpu_torch.utils.graphs import capturable_states, compiled, register_key_part
 
-__all__ = ["GumbelMCTSResult", "seq_halving_schedule", "run_gumbel_mcts", "make_gumbel_mcts_policy",
-           "PACK_TOKENS", "set_gumbel_pack"]
+__all__ = ["GumbelMCTSResult", "LearnedMCTSResult", "seq_halving_schedule", "run_gumbel_mcts",
+           "make_gumbel_mcts_policy", "PACK_TOKENS", "set_gumbel_pack"]
 
 PACK_TOKENS = ("i16", "bf16", "logp")
 pack = frozenset(t for t in os.environ.get("GYMGO_GUMBEL_PACK", "").split(",") if t)
@@ -85,6 +102,22 @@ class GumbelMCTSResult(NamedTuple):
     root_value: torch.Tensor  # float32 (B,): completed-Q root estimate
     root_visits: torch.Tensor  # int32 (B, A)
     sampled_actions: torch.Tensor  # int32 (B, M): Gumbel-top-k candidates
+
+
+class LearnedMCTSResult(NamedTuple):
+    """A search over a learned model: ``GumbelMCTSResult``'s fields, then
+    each tree slot's edge and what ``f`` said there (slot 0 is the root)."""
+
+    actions: torch.Tensor
+    improved_policy: torch.Tensor
+    root_value: torch.Tensor
+    root_visits: torch.Tensor
+    sampled_actions: torch.Tensor
+    node_parent: torch.Tensor  # int32 (B, S): the slot's parent slot, -1 at the root
+    node_action: torch.Tensor  # int32 (B, S): the action from the parent, -1 at the root
+    node_value: torch.Tensor  # float32 (B, S): f's value, from the slot's mover's view
+    node_logits: torch.Tensor  # float32 (B, S, A): f's logits, unmasked
+    node_latents: torch.Tensor | None = None  # (K, S, C, N, N): the stored states of ``latent_rows``' boards
 
 
 def seq_halving_schedule(num_simulations: int, max_considered: int) -> tuple:
@@ -126,13 +159,20 @@ def run_gumbel_mcts(
     komi: float = 0.0,
     pass_min_stones: int = 0,
     gumbel: torch.Tensor | None = None,
+    latent_rows: torch.Tensor | None = None,
 ) -> GumbelMCTSResult:
     """Run Gumbel MCTS from each state, on the states' device.
 
     ``net(canonical_states) -> (logits, value)``, the value from the canonical
-    mover's view: an ``AZNet`` or any callable.  ``gumbel`` is the root noise,
+    mover's view: an ``AZNet`` or any callable, searched over the exact env
+    step; or a learned model (``represent``, ``dynamics``, ``predict``, as
+    ``MuZeroNet``), searched over its own dynamics, which returns a
+    ``LearnedMCTSResult``.  ``gumbel`` is the root noise,
     float32 ``(B, N*N+1)``; it is drawn from ``generator`` unless given, so a
-    caller can hand two searches the same noise.
+    caller can hand two searches the same noise.  ``latent_rows``, int
+    ``(K,)`` board indices, asks a learned search for those boards' trees of
+    hidden states, ``node_latents`` ``(K, S, C, N, N)`` in the store's type
+    (the others' are dropped with the search).
 
     ``pass_min_stones`` > 0 applies the self-play opening constraint
     (``actions.mask_early_pass``) to the root action set only; interior nodes
@@ -149,6 +189,9 @@ def run_gumbel_mcts(
     visit_dt = torch.int16 if "i16" in pack else torch.int32
     wsum_dt = torch.bfloat16 if "bf16" in pack else torch.float32
     use_logp = "logp" in pack
+    learned = hasattr(net, "dynamics")
+    if latent_rows is not None and not learned:
+        raise ValueError("latent_rows needs a learned model: the exact simulator keeps no hidden states")
 
     def masked_policy(sts):
         with tracing.span("search.net"):
@@ -157,7 +200,17 @@ def run_gumbel_mcts(
             valid = _actions.batch_valid_moves(sts) > 0
             return torch.where(valid, logits, neg_inf), value, valid
 
-    root_logits, root_value_net, valid_root = masked_policy(states)
+    if learned:
+        with tracing.span("search.represent"):
+            store = net.latent_store(num_nodes, b, dev)
+            net.represent(_transform.batch_canonical_form(states), out=store[0])
+        with tracing.span("search.predict"):
+            net_logits, root_value_net = net.predict(store[0])
+        with tracing.span("search.root"):
+            valid_root = _actions.batch_valid_moves(states) > 0
+            root_logits = torch.where(valid_root, net_logits, neg_inf)
+    else:
+        root_logits, root_value_net, valid_root = masked_policy(states)
     with tracing.span("search.root"):
         valid_root = _actions.mask_early_pass(valid_root, states, pass_min_stones)
         root_logits = torch.where(valid_root, root_logits, neg_inf)
@@ -172,8 +225,17 @@ def run_gumbel_mcts(
         cand_base = torch.where(cand_valid, noisy.gather(1, cand), neg_inf)
 
     # Tree arrays.  Values are stored from the node mover's view throughout.
-    node_states = torch.zeros((b, num_nodes) + tuple(states.shape[1:]), dtype=states.dtype, device=dev)
-    node_states[:, 0] = states
+    if learned:
+        node_parent = torch.full((b, num_nodes), -1, dtype=torch.int32, device=dev)
+        node_action = torch.full((b, num_nodes), -1, dtype=torch.int32, device=dev)
+        node_logits = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
+        node_logits[:, 0] = net_logits
+        # every action is selectable below the root
+        below_root = (torch.arange(num_nodes, device=dev) > 0)[None, :, None]
+        latent_bytes = 2 * store[0].numel() * store.element_size()  # the parents' states read and gathered
+    else:
+        node_states = torch.zeros((b, num_nodes) + tuple(states.shape[1:]), dtype=states.dtype, device=dev)
+        node_states[:, 0] = states
     node_done = torch.zeros((b, num_nodes), dtype=torch.bool, device=dev)
     node_done[:, 0] = _state.game_ended(states)
     node_value = torch.zeros((b, num_nodes), dtype=torch.float32, device=dev)
@@ -183,6 +245,8 @@ def run_gumbel_mcts(
         prior[:, 0] = torch.log_softmax(root_logits, dim=-1)
         node_valid = torch.zeros((b, num_nodes, a_size), dtype=torch.bool, device=dev)
         node_valid[:, 0] = valid_root
+        if learned:
+            node_valid[:, 1:] = True
     else:
         prior = torch.zeros((b, num_nodes, a_size), dtype=torch.float32, device=dev)
         prior[:, 0] = torch.softmax(root_logits, dim=-1)
@@ -215,10 +279,69 @@ def run_gumbel_mcts(
             logits_pi, selectable = prior.to(torch.float32), node_valid
         else:
             logits_pi, selectable = torch.log(prior.clamp_min(1e-30)), prior > 0
+            if learned:
+                selectable = selectable | below_root
         max_n = visit.amax(dim=-1, keepdim=True)
         improved = torch.softmax(logits_pi + _sigma(q, max_n, c_visit, c_scale), dim=-1)
         scores = improved - visit.to(torch.float32) / (1.0 + total)
         return torch.where(selectable, scores, neg_inf)
+
+    def expand_exact(slot, exp_parent, exp_action, prev_child, already):
+        """One exact env step per env into ``slot``; returns the leaf value.
+        The terminal outcome comes from the step's own areas, not from a
+        second scoring flood."""
+        with tracing.span("search.expand"):
+            new_states, step_info = _step.step_states(node_states[bidx, exp_parent], exp_action)
+        new_logits, new_values, new_valid = masked_policy(new_states)
+        with tracing.span("search.expand"):
+            new_done = _state.game_ended(new_states)
+            win_black = torch.sign(
+                step_info.black_area.to(torch.float32) - step_info.white_area.to(torch.float32) - komi
+            )
+            outcome = torch.where(_state.turn(new_states) == 1, -win_black, win_black)
+            leaf_value = torch.where(new_done, outcome, new_values)
+
+            # Slot sim + 1 is new in this simulation, so an env that revisits a
+            # terminal child leaves it as it was made: zeros.
+            write = ~already
+            node_states[:, slot] = torch.where(write[:, None, None, None], new_states, 0)
+            node_done[:, slot] = write & new_done
+            node_value[:, slot] = torch.where(write, leaf_value, 0.0)
+            if use_logp:
+                prior[:, slot] = torch.where(write[:, None], torch.log_softmax(new_logits, dim=-1).to(wsum_dt),
+                                             neg_inf)
+                node_valid[:, slot] = write[:, None] & new_valid
+            else:
+                prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
+            child[bidx, exp_parent, exp_action] = torch.where(write, slot, prev_child)
+            # A revisited child is terminal, so its stored value is its exact
+            # outcome from its own mover's view: back that up again.
+            revisit_value = _treewalk.gather_node(node_value, prev_child.clamp_min(0))
+            return torch.where(already, revisit_value, leaf_value)
+
+    def expand_learned(slot, exp_parent, exp_action):
+        """``g`` from the parent's hidden state into the store's ``slot``,
+        then ``f``; returns ``f``'s value.  No node is terminal, so every
+        walk ends on an unexpanded edge and the slot is always new."""
+        with tracing.span("search.latent"):
+            tracing.count("search.latent_bytes", latent_bytes)
+            x = net.dynamics_input(store, exp_parent, exp_action)
+        with tracing.span("search.dynamics"):
+            tracing.count("search.dynamics_rows", b)
+            net.dynamics_from_input(x, out=store[slot])
+        with tracing.span("search.predict"):
+            new_logits, new_values = net.predict(store[slot])
+        with tracing.span("search.backup"):
+            node_value[:, slot] = new_values
+            node_logits[:, slot] = new_logits
+            node_parent[:, slot] = exp_parent.to(torch.int32)
+            node_action[:, slot] = exp_action.to(torch.int32)
+            if use_logp:
+                prior[:, slot] = torch.log_softmax(new_logits, dim=-1).to(wsum_dt)
+            else:
+                prior[:, slot] = torch.softmax(new_logits, dim=-1)
+            child[bidx, exp_parent, exp_action] = torch.full((b,), slot, dtype=child.dtype, device=dev)
+        return new_values
 
     for sim in range(num_simulations):
         # ---- root action by sequential halving: among the top-`considered`
@@ -250,37 +373,11 @@ def run_gumbel_mcts(
             prev_child = child[bidx, exp_parent, exp_action]
             already = prev_child >= 0
 
-        # ---- expansion: one exact env step per env.  The terminal outcome
-        # comes from the step's own areas, not from a second scoring flood.
-        with tracing.span("search.expand"):
-            new_states, step_info = _step.step_states(node_states[bidx, exp_parent], exp_action)
         slot = sim + 1
-        new_logits, new_values, new_valid = masked_policy(new_states)
-        with tracing.span("search.expand"):
-            new_done = _state.game_ended(new_states)
-            win_black = torch.sign(
-                step_info.black_area.to(torch.float32) - step_info.white_area.to(torch.float32) - komi
-            )
-            outcome = torch.where(_state.turn(new_states) == 1, -win_black, win_black)
-            leaf_value = torch.where(new_done, outcome, new_values)
-
-            # Slot sim + 1 is new in this simulation, so an env that revisits a
-            # terminal child leaves it as it was made: zeros.
-            write = ~already
-            node_states[:, slot] = torch.where(write[:, None, None, None], new_states, 0)
-            node_done[:, slot] = write & new_done
-            node_value[:, slot] = torch.where(write, leaf_value, 0.0)
-            if use_logp:
-                prior[:, slot] = torch.where(write[:, None], torch.log_softmax(new_logits, dim=-1).to(wsum_dt),
-                                             neg_inf)
-                node_valid[:, slot] = write[:, None] & new_valid
-            else:
-                prior[:, slot] = torch.where(write[:, None], torch.softmax(new_logits, dim=-1), 0.0)
-            child[bidx, exp_parent, exp_action] = torch.where(write, slot, prev_child)
-            # A revisited child is terminal, so its stored value is its exact
-            # outcome from its own mover's view: back that up again.
-            revisit_value = _treewalk.gather_node(node_value, prev_child.clamp_min(0))
-            leaf_value = torch.where(already, revisit_value, leaf_value)
+        if learned:
+            leaf_value = expand_learned(slot, exp_parent, exp_action)
+        else:
+            leaf_value = expand_exact(slot, exp_parent, exp_action, prev_child, already)
 
         # ---- backup along the path with a sign flip per ply: one batched
         # scatter-add per array.  The (node, action) pairs of a path are
@@ -315,13 +412,22 @@ def run_gumbel_mcts(
         # with no visits).
         total_n = rn.sum(dim=1)
         root_q = torch.where(total_n > 0, w0.sum(dim=1) / total_n.clamp_min(1), root_value_net)
-    return GumbelMCTSResult(
+    out = GumbelMCTSResult(
         actions=actions.to(torch.int32),
         improved_policy=improved,
         root_value=root_q,
         root_visits=rn.clone(),
         sampled_actions=cand.to(torch.int32),
     )
+    if not learned:
+        return out
+    node_latents = None
+    if latent_rows is not None:
+        with tracing.span("search.latent"):
+            kept = store.index_select(1, latent_rows.to(torch.int64))
+            tracing.count("search.latent_bytes", 2 * kept.numel() * kept.element_size())
+            node_latents = kept.transpose(0, 1)
+    return LearnedMCTSResult(*out, node_parent, node_action, node_value, node_logits, node_latents)
 
 
 run_gumbel_mcts = compiled(

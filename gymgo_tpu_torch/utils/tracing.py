@@ -17,9 +17,11 @@ makes nothing.
 ``count(name, n)`` adds to a process-wide counter (``counters``).  Counts
 taken while a graph is captured go to its table instead, and each replay of
 the graph adds them again (``replayed``), so the launches of the hand kernels
-(``launches.<symbol>``, read as ``ops.cuda_lib.CudaKernelLib.launches``) and
-the boards the search's network evaluates (``search.net_rows``) count what
-each replay runs.  A reader of a trace counts a traced section's by the
+(``launches.<symbol>``, read as ``ops.cuda_lib.CudaKernelLib.launches``), the
+boards the search's network evaluates (``search.net_rows``), and over a
+learned model the boards through its dynamics (``search.dynamics_rows``) and
+the bytes its gather of hidden states must move (``search.latent_bytes``)
+count what each replay runs.  A reader of a trace counts a traced section's by the
 table: each ``gymgo.graph.replay.<id>`` span in it adds ``tables[<id>].counts``.
 The host's waits for the card are counted by their ``sync.<site>`` spans.
 
