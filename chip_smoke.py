@@ -7,9 +7,9 @@ Phases 3-7 run the default route (the bundle flood, ``GYMGO_FLOOD=bitpack``),
 phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
 
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build: nvcc builds the three flood kernels (bundle, min/max, claim) and
-     the served net's fused GroupNorm kernel from ``gymgo_tpu_torch/csrc``, in
-     parallel, and prints each one's ptxas line;
+  2. build: nvcc builds the three flood kernels (bundle, min/max, claim),
+     the served net's fused GroupNorm kernel and the env step's kernels from
+     ``gymgo_tpu_torch/csrc``, in parallel, and prints each one's ptxas line;
   3. kernel vs plain: the bundle kernel's int32 word equals the plain PyTorch
      version's bit for bit, on random boards at N = 5, 9, 19, 22, on serpentine,
      staircase, spiral, comb, one-colour, empty and checkerboard boards, on
@@ -258,19 +258,37 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      launches a forward at B = 256 and B = 1 (the counter set to 0 first),
      the served forward against the library's NCHW forward on the same
      weights, and both forwards timed in CUDA graphs.
+ 30. the env step's hand kernels (``ops/env_step.py``, ``csrc/env_step.cu``)
+     around the bundle flood, ``env_step_path``: (a) at 19x19 B = 12288, 512
+     and 1, from phase 4's boards, three steps of sampled moves with some
+     passes and some out-of-range or occupied points: the fused step equal
+     to the op-by-op step (``step_states_plain``, ``step_planes_plain``) bit
+     for bit on the stateless and the carried path;
+     (b) ``BatchGoEnv.rollout``'s 64-step window (one graph) at B = 12288 and
+     512, fused and op-by-op in turns, by CUDA events, beside the byte bound
+     (``env_step_bytes``), with the device operations a step and each
+     kernel's launches in one more replayed window (the counters set to 0
+     first); the three kernels alone and the bundle flood
+     at B = 12288 in graphs of 64; 64 stateless ``step_states`` in one graph
+     at B = 256 and 1, fused and op-by-op.  Alone:
+     ``python -c 'import torch, chip_smoke; chip_smoke.env_step_path(torch.device("cuda", 0))'``.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
 20 the GTP front end, 22-23 the parallel layer and the soak, 24 the
 measurement layer, 25-26 the compiled forms, 27 the minmax route compiled,
-28 boards over 32x32, 29 the served net's norm kernel;
-the launch counts are set to 0 before the search, each match, the training
+28 boards over 32x32, 29 the served net's norm kernel, 30 the env step's kernels.
+Phases 25-30 run in a process of their own (``python3 chip_smoke.py --late
+BOARDS RESULT``, which the script starts itself), from phase 4's boards handed
+over in a file: late in the long process the profiler loses records of
+phase 25c's window, whose count is held to the counter's.
+The launch counts are set to 0 before the search, each match, the training
 run, the ``gogame`` game, the ``GoEnv`` games, phase 20, each sharded
 rollout of 22a, each ablation's windows, each layout's search, phase 25's
 compiled windows and phase 26's searches, and read after; phase 27 reads
 them around each path it drives, as does phase 28.  After phase 15, a replay of the recipe's
 size takes one add of more rows than its capacity (81,920 into 65,536):
 every slot must hold one whole row, the last 65,536 in order.
-The line before the nvidia-smi line is a JSON object with the four kernels'
+The line before the nvidia-smi line is a JSON object with the five kernels'
 numbers; the last line is ``{"ok": true, "device": {...}}``.  Needs one card;
 exits non-zero without printing a result when CUDA is unavailable.
 """
@@ -1912,7 +1930,7 @@ def compiled_path(dev, states, bundle_lib, minmax_lib):
         busy_us = sum(r[0] for r in rows)
         if not WINDOW <= seen[form] <= WINDOW + 1 or counted != WINDOW + 1 or busy_us <= 0:
             fail(f"25c {form}: the profiler saw {seen[form]} bundle kernels and {busy_us} us of device time, the "
-                 f"counter {counted}; expected {WINDOW + 1}")
+                 f"counter {counted}; expected {WINDOW + 1}; kernels seen {[(k[:48], c) for _, c, k in rows[:8]]}")
         profiles[form] = (wall_us / WINDOW, busy_us / WINDOW, 100 * busy_us / wall_us,
                           sum(r[1] for r in rows) / WINDOW)
 
@@ -2767,6 +2785,154 @@ def group_norm_path(dev, lib):
     return out
 
 
+def env_step_bytes(n, b, carried=True):
+    """The least bytes a step of ``b`` boards of ``n`` x ``n`` reads and
+    writes, the bundle flood's aside: on the carried path the bool black,
+    white, invalid and ko planes and the int16 atari plane, each read and
+    written once, and per board the word and the flags in, the action,
+    reward, flags and the window's rows out; on the stateless path the six
+    int8 planes in and out, the action in and the step's flags, captures and
+    areas out."""
+    cells = n * n
+    return b * (12 * cells + (8 + 3 + 4 + 4 + 3 + 2 if carried else 8 + 2 + 4 + 8))
+
+
+def env_step_path(dev, states=None):
+    """Phase 30: the env step's hand kernels (``ops/env_step.py``) against
+    the op-by-op step at B = 12288, 512 and 1 on the carried and the
+    stateless path, bit for bit; then 64-step graphs of both timed by CUDA
+    events beside the byte bound, and the kernels' launches a step.
+    ``states`` are steady-state 19x19 boards (phase 4's; made here by a
+    rollout when None).  Returns the phase's numbers."""
+    from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
+    from gymgo_tpu_torch.core import step as tstep
+    from gymgo_tpu_torch.core.actions import uniform_random_actions
+    from gymgo_tpu_torch.core.state import batch_init_state
+    from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
+    from gymgo_tpu_torch.ops import bundle_flood as bf
+    from gymgo_tpu_torch.ops import env_step
+
+    N, WINDOW, BATCHES = 19, 64, (12288, 512, 1)
+    t_phase = time.perf_counter()
+    fused_step = tstep.fused_step
+
+    @contextlib.contextmanager
+    def plain():
+        tstep.fused_step = lambda _boards: False
+        try:
+            yield
+        finally:
+            tstep.fused_step = fused_step
+
+    def same(got, want):
+        if isinstance(want, tuple):
+            return len(got) == len(want) and all(same(x, y) for x, y in zip(got, want))
+        if want is None or got is None:
+            return got is want
+        if want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return got.dtype == want.dtype and torch.equal(got, want)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    if states is None:
+        cfg = EnvConfig(board_size=N, batch_size=BATCHES[0], reward_method=HEURISTIC, auto_reset=True)
+        states = rollout(gen, batch_init_state(BATCHES[0], N, device=dev), 300, cfg).final_states
+    out = {"checked": {}, "timing": {}}
+    # (a) bit for bit, three steps a batch: sampled moves with some passes and some out of range or occupied
+    for B in BATCHES:
+        s = states[:B].clone()
+        ps = tstep.seed_planes(s)
+        for step in range(3):
+            acts = uniform_random_actions(gen, s).to(torch.int64)
+            u = torch.rand(B, generator=gen, device=dev)
+            # out of range below and above, or the first occupied point (0 on an empty board)
+            occupied = (s[:, 0] | s[:, 1]).reshape(B, -1).to(torch.uint8).argmax(1)
+            odd = torch.where(u > 0.98, -1, torch.where(u > 0.96, N * N + 1, occupied))
+            acts = torch.where(u < 0.05, N * N, torch.where(u > 0.94, odd, acts))
+            got, want = tstep.step_states(s, acts), tstep.step_states_plain(s, acts)
+            if not same(got, want):
+                fail(f"30a B={B} step {step}: the stateless fused step differs from the op-by-op step")
+            got_ps, want_ps = tstep.step_planes(ps, acts), tstep.step_planes_plain(ps, acts)
+            if not same(got_ps, want_ps):
+                fail(f"30a B={B} step {step}: the carried fused step differs from the op-by-op step")
+            s, ps = want[0], want_ps[0]
+        out["checked"][B] = {"captured": int(want[1].num_captured.sum()), "invalid": int(want[1].invalid_action.sum())}
+    print(f"[30a env step] 19x19 B={', '.join(map(str, BATCHES))}: 3 steps each, stateless and carried, fused == "
+          f"op-by-op on every plane, flag, capture count and area ({out['checked']})", flush=True)
+
+    # (b) 64-step windows (the carried path: BatchGoEnv.rollout) and 64 stateless steps, each one CUDA graph
+    for B in BATCHES[:2]:
+        cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+        s = states[:B].clone()
+        envs = {"fused": BatchGoEnv(cfg, device=dev)}
+        with plain():
+            envs["plain"] = BatchGoEnv(cfg, device=dev)
+        row = {}
+        for name in ("fused", "plain", "fused", "plain"):
+            ctx = contextlib.nullcontext if name == "fused" else plain
+            with ctx():
+                ms = time_ms(lambda: envs[name].rollout(gen, s, WINDOW), 8)
+            row.setdefault(f"{name}_us_per_step", []).append(1e3 * ms / WINDOW)
+        # each kernel's launches in one more replayed window of the fused rollout
+        counted = (*env_step.KERNELS, bf.BUNDLE_FLOOD)
+        for lib in counted:
+            lib.launches = 0
+        envs["fused"].rollout(gen, s, WINDOW)
+        row["launches_per_window"] = {lib.symbol: lib.launches for lib in counted}
+        (graph,) = envs["fused"]._rollout.graphs.values()
+        (plain_graph,) = envs["plain"]._rollout.graphs.values()
+        row["ops_per_step"] = graph.table.ops / WINDOW
+        row["plain_ops_per_step"] = plain_graph.table.ops / WINDOW
+        row["bound_us_per_step"] = 1e6 * env_step_bytes(N, B) / H100_BYTES_PER_S
+        row["flood_bound_us_per_step"] = 1e6 * 6 * B * N * N / H100_BYTES_PER_S
+        out["timing"][f"window_b{B}"] = row
+        print(f"[30b env step] 19x19 B={B} 64-step window (one graph): fused {row['fused_us_per_step']} us a step, "
+              f"op-by-op {row['plain_us_per_step']} us (CUDA events, 8 windows each, in turns); "
+              f"{row['ops_per_step']:.2f} device operations a step against {row['plain_ops_per_step']:.2f}; "
+              f"byte bound {row['bound_us_per_step']:.2f} us a step ({env_step_bytes(N, B)} bytes at 3.35 TB/s) "
+              f"+ the flood's {row['flood_bound_us_per_step']:.2f}; launches a window "
+              f"{row['launches_per_window']}", flush=True)
+    # the kernels alone at B = 12288 (sample with the reset, rules, score on one step's inputs), and the flood
+    B = BATCHES[0]
+    ps = tstep.seed_planes(states[:B].clone())
+    words = torch.randint(0, 1 << 31, (B,), generator=gen, device=dev, dtype=torch.int64)
+    acts = torch.empty((B,), dtype=torch.int32, device=dev)
+    env_step.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=True, words=words, actions=acts)
+    mover, opp, info = env_step.rules(*ps[:6], acts, atari=ps.atari, ko_surr=ps.ko_surr)
+    word = bf.bundle_flood_cuda(mover, opp)
+    nxt = tstep.seed_planes(states[:B].clone())
+    reward = torch.empty((B,), dtype=torch.float32, device=dev)
+
+    def kernels():
+        env_step.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=True, words=words, actions=acts)
+        env_step.rules(*ps[:6], acts, atari=ps.atari, ko_surr=ps.ko_surr)
+        env_step.score(mover, opp, word, info, ps.invd, black=nxt.black, white=nxt.white, invd=nxt.invd,
+                       atari=nxt.atari, ko_surr=nxt.ko_surr, wtm=nxt.white_to_move, passed=nxt.prev_passed,
+                       done=nxt.done, reward=reward, komi=0.0, reward_method=HEURISTIC)
+
+    kernel_ms = [graphed_ms(kernels, WINDOW, 20) for _ in range(2)]
+    flood_ms = graphed_ms(lambda: bf.bundle_flood_cuda(mover, opp), WINDOW, 20)
+    out["timing"]["kernels_b12288"] = {"ms": min(kernel_ms), "ms_again": max(kernel_ms), "flood_ms": flood_ms,
+                                      "bound_ms": 1e3 * env_step_bytes(N, B) / H100_BYTES_PER_S}
+    print(f"[30b env step kernels] 19x19 B={B}: sample + rules + score {kernel_ms[0]:.4f} ms a step (again "
+          f"{kernel_ms[1]:.4f}; graphs of 64), the bundle flood between them {flood_ms:.4f} ms; byte bound "
+          f"{out['timing']['kernels_b12288']['bound_ms']:.4f} ms", flush=True)
+    # 64 stateless steps in one graph (the search's and GTP's step) at B = 256 and 1
+    for B in (256, 1):
+        s = states[:B].clone()
+        a = uniform_random_actions(gen, s)
+        row = {"fused_ms": [], "plain_ms": []}
+        for name in ("fused", "plain", "fused", "plain"):
+            with (contextlib.nullcontext() if name == "fused" else plain()):
+                row[f"{name}_ms"].append(graphed_ms(lambda: tstep.step_states(s, a), WINDOW, 20))
+        row["bound_ms"] = 1e3 * env_step_bytes(N, B, carried=False) / H100_BYTES_PER_S
+        out["timing"][f"stateless_b{B}"] = row
+        print(f"[30b env step] stateless step_states 19x19 B={B} (graphs of 64): fused {row['fused_ms']} ms a "
+              f"step, op-by-op {row['plain_ms']} ms; byte bound {row['bound_ms']:.6f} ms", flush=True)
+    print(f"[30 env step] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def kernel_counts(libs):
     """The launch counts of the bundle, min/max and claim libraries ``libs``,
     by name."""
@@ -2790,6 +2956,56 @@ def _in(ctx, fn, *args):
         return fn(*args)
 
 
+def late_phases(states) -> dict:
+    """Phases 25-30 in a process of their own (``late_main``), from phase
+    4's ``states``, handed over in a file; returns each phase's result by its
+    number and ``seconds``.  Late in the long process the profiler loses
+    records of phase 25c's window (the counter and 25a's bit-exact replays say
+    every kernel ran), so its count is taken in a fresh process."""
+    with tempfile.TemporaryDirectory() as workdir:
+        boards, result = Path(workdir) / "boards.pt", Path(workdir) / "late.pt"
+        torch.save(states.cpu(), boards)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[25-30] in a process of their own; this one holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+              f"of the card meanwhile", flush=True)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--late", str(boards), str(result)],
+                              cwd=ROOT)
+        if proc.returncode != 0:
+            fail(f"phases 25-30 exited {proc.returncode} in their own process")
+        return torch.load(result, map_location="cpu", weights_only=False)
+
+
+def late_main(boards: str, result: str) -> int:
+    """The process of ``late_phases``: phases 25-30 on the default route from
+    the boards in the file ``boards``; their results into the file
+    ``result``."""
+    from gymgo_tpu_torch.core import flood as tflood
+    from gymgo_tpu_torch.ops import bundle_flood as bf
+    from gymgo_tpu_torch.ops import claim_flood as cf
+    from gymgo_tpu_torch.ops import group_norm_act as gna
+    from gymgo_tpu_torch.ops import minmax_flood as mf
+
+    tflood.set_flood_route("bitpack")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
+    built = libs + (cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
+    states = torch.load(boards).to(dev)
+    out = {"seconds": {}}
+    for name, fn, args in (("25", compiled_path, (dev, states, *libs)),
+                           ("26", compiled_search_path, (dev, states, *libs)),
+                           ("27", minmax_compiled_path, (dev, states, built)),
+                           ("28", big_boards_path, (dev, built)),
+                           ("29", group_norm_path, (dev, gna.GROUP_NORM_ACT)),
+                           ("30", env_step_path, (dev, states))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        out["seconds"][name] = time.perf_counter() - t0
+    torch.save(out, result)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
@@ -2802,6 +3018,7 @@ def main() -> int:
     from gymgo_tpu_torch.env.batch_env import rollout
     from gymgo_tpu_torch.ops import bundle_flood as bf
     from gymgo_tpu_torch.ops import claim_flood as cf
+    from gymgo_tpu_torch.ops import env_step as es
     from gymgo_tpu_torch.ops import group_norm_act as gna
     from gymgo_tpu_torch.ops import minmax_flood as mf
 
@@ -2820,20 +3037,20 @@ def main() -> int:
     ).stdout.strip()
     print(f"[1 device] torch: {kind} (count {count}); nvidia-smi: {smi}", flush=True)
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one nvcc per source, started together (the env step's four entry points share one library)
     libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)  # the kernels phases 12-26 count
     built = libs + (cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(built)) as ex:
-        list(ex.map(lambda lib: lib.function(), built))
+    with ThreadPoolExecutor(len(built) + 1) as ex:
+        list(ex.map(lambda lib: lib.function(), built + (es.ENV_RULES,)))
     build_s = time.perf_counter() - t0
-    for lib in built:
+    for lib in built + (es.ENV_RULES,):
         ptxas = " | ".join(l.split(":", 1)[-1].strip() for l in lib.build_log.splitlines()
                            if "spill" in l or ("ptxas info" in l and "Used" in l))
         if re.search(r"[1-9][0-9]* bytes spill", ptxas):
             fail(f"{lib.source.name} spills registers: {ptxas}")
         print(f"[2 build] {lib.source.name} built and loaded in {lib.build_seconds:.2f} s "
-              f"(all {len(built)}: {build_s:.2f} s); {ptxas}", flush=True)
+              f"(all {len(built) + 1}: {build_s:.2f} s); {ptxas}", flush=True)
 
     # 3. kernel against its plain version, bit for bit
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3020,11 +3237,10 @@ def main() -> int:
     ablation_launches = phase("24a", ablation_path, dev, states, *libs)
     layout_launches = phase("24b", layouts_path, dev, states, *libs)
     study_launches = phase("24c", studies)
-    compiled_launches = phase("25", compiled_path, dev, states, *libs)
-    compiled_search_launches = phase("26", compiled_search_path, dev, states, *libs)
-    claim = phase("27", minmax_compiled_path, dev, states, built)
-    big = phase("28", big_boards_path, dev, built)
-    norm = phase("29", group_norm_path, dev, gna.GROUP_NORM_ACT)
+    late = late_phases(states)
+    seconds.update(late["seconds"])
+    compiled_launches, compiled_search_launches = late["25"], late["26"]
+    claim, big, norm, env = late["27"], late["28"], late["29"], late["30"]
     print(f"[seconds] each phase's: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
           f"{time.perf_counter() - t_main:.1f} s in all", flush=True)
 
@@ -3134,6 +3350,27 @@ def main() -> int:
         **{f"{field}_{key}": c[field] for key, c in norm["cases"].items() if key != "b256"
            for field in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "forward_ms": {f"{k}_{f}": v for k, fw in norm.items() if k.startswith("forward_") for f, v in fw.items()},
+    }, {
+        "name": "env_step",
+        "route": "cuda",
+        "source": "gymgo_tpu_torch/csrc/env_step.cu",
+        "replaces": "none: the counterpart of XLA's fusion of gymgo_tpu/core/step.py's elementwise chain, the "
+                    "sampler and the auto-reset",
+        # a replayed 64-step window at B = 12288 (30b): each entry point's launches and the bundle flood's
+        "launches": env["timing"]["window_b12288"]["launches_per_window"],
+        "ops_per_step": {k: v["ops_per_step"] for k, v in env["timing"].items() if k.startswith("window_")},
+        "plain_ops_per_step": {k: v["plain_ops_per_step"] for k, v in env["timing"].items()
+                               if k.startswith("window_")},
+        "max_abs_err": 0,
+        # sample, rules and score a step at B = 12288; the step's planes and flags read and written once
+        "ms": env["timing"]["kernels_b12288"]["ms"],
+        "flood_ms": env["timing"]["kernels_b12288"]["flood_ms"],
+        "plain_ms": min(env["timing"]["window_b12288"]["plain_us_per_step"]) / 1e3,
+        "step_ms": min(env["timing"]["window_b12288"]["fused_us_per_step"]) / 1e3,
+        "bound_ms": env["timing"]["kernels_b12288"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "timing": env["timing"],
     }]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3141,4 +3378,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(late_main(*sys.argv[2:4]) if sys.argv[1:2] == ["--late"] else main())

@@ -16,12 +16,14 @@ from __future__ import annotations
 import torch
 
 from gymgo_tpu_torch import govars
+from gymgo_tpu_torch.config import HEURISTIC, REAL, EnvConfig
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core.flood import neighbor_or
 from gymgo_tpu_torch.ops.claim_flood import claim_flood
 from gymgo_tpu_torch.utils import tracing
 
-__all__ = ["areas", "areas_planes", "winning", "winning_planes", "liberties", "num_liberties"]
+__all__ = ["areas", "areas_planes", "winning", "winning_planes", "liberties", "num_liberties",
+           "reward_from_areas"]
 
 
 def _claims(black: torch.Tensor, white: torch.Tensor):
@@ -77,3 +79,19 @@ def num_liberties(states: torch.Tensor):
     black_libs, white_libs = liberties(states)
     return (black_libs.reshape(b, -1).sum(1, dtype=torch.int32),
             white_libs.reshape(b, -1).sum(1, dtype=torch.int32))
+
+
+def reward_from_areas(black_area, white_area, done, config: EnvConfig) -> torch.Tensor:
+    """Reward from the step's Trump-Taylor areas, float32 (B,).
+
+    HEURISTIC pays the area difference every step and +/- N^2 at game end, a
+    tie at game end counting as a loss (the reference's quirk)."""
+    n = config.board_size
+    with tracing.span("env.score"):
+        kc = black_area.to(torch.float32) - white_area.to(torch.float32) - config.komi
+        if config.reward_method == REAL:
+            return torch.where(done, torch.sign(kc), 0.0)
+        if config.reward_method == HEURISTIC:
+            end_reward = torch.where(kc > 0, 1.0, -1.0) * (n * n)
+            return torch.where(done, end_reward, kc)
+    raise ValueError(config.reward_method)

@@ -23,6 +23,16 @@ Algorithm (the same as the JAX package's, so results agree bit for bit):
 * One packed uint8 dilation turns the classes into the next player's invalid
   mask (suicide rule) and the next step's ko-surround map.
 
+On the card.  ``fused_step`` decides, from what it can see, whether a step
+runs as the hand kernels of ``ops.env_step`` around the bundle flood: CUDA
+tensors, the bundle route, boards whose cells the bundle word holds, and no
+ablation token.  There the step is three launches on the carried path
+(``env_rules``, the bundle flood, ``env_score``; the rollout's sampler adds
+``env_sample``) and five on the stateless one (``env_split`` and a bundle
+launch on the board before the move first), each result equal bit for bit to
+the op-by-op ``step_planes_plain``, which every other case runs: the CPU, the
+minmax route, boards over 22x22 and the ablations.
+
 Ablation.  ``GYMGO_ABLATE`` (read at import, a comma list, as in the JAX
 package) names step components to skip so that the step's cost can be taken
 apart: ``hit`` (the invalid-move probe), ``ko`` (the ko probe), ``capsum``
@@ -42,8 +52,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from gymgo_tpu_torch import govars
+from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core.flood import flood_or, neighbor_or, shift
+from gymgo_tpu_torch.core.score import reward_from_areas
+from gymgo_tpu_torch.ops import env_step as _kernels
+from gymgo_tpu_torch.ops.bundle_flood import bundle_flood
 from gymgo_tpu_torch.utils import tracing
 
 __all__ = [
@@ -51,6 +65,12 @@ __all__ = [
     "PlanesState",
     "step_states",
     "step_planes",
+    "step_states_plain",
+    "step_planes_plain",
+    "step_window_row",
+    "fused_step",
+    "seed_planes",
+    "reset_finished",
     "planes_from_states",
     "states_from_planes",
     "invalid_action_flags",
@@ -176,6 +196,27 @@ def _killed_by_classes(black, white, opp, board_idx):
     return opp & ((atari == placed_enc) | ~(one_lib | multi_lib))
 
 
+def seed_planes(states: torch.Tensor) -> PlanesState:
+    """``planes_from_states`` with the carried planes seeded (``init_atari``,
+    ``init_ko_surr``): the planes state a rollout carries, made once a
+    window."""
+    ps = planes_from_states(states)
+    return ps._replace(atari=init_atari(ps), ko_surr=init_ko_surr(ps))
+
+
+def reset_finished(ps: PlanesState) -> None:
+    """Zero the finished boards of the planes state in place, the carried
+    planes too (every plane a fresh tensor the rollout owns).  Under
+    ``fused_step`` one launch of ``ops.env_step.sample``."""
+    if fused_step(ps.black):
+        _kernels.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=True)
+        return
+    reset = ps.done.clone()
+    for x in ps:
+        if x is not None:
+            x.masked_fill_(reset.view((-1,) + (1,) * (x.dim() - 1)), 0)
+
+
 def invalid_action_flags(states: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
     """bool (B,): action is out of range, or a board move into INVD_CHNL."""
     b, n = states.shape[0], states.shape[-1]
@@ -188,6 +229,17 @@ def invalid_action_flags(states: torch.Tensor, actions: torch.Tensor) -> torch.T
     return oob | (~is_pass & hit)
 
 
+def fused_step(boards: torch.Tensor) -> bool:
+    """True when a step of ``boards`` (``(..., N, N)``) runs as the hand
+    kernels of ``ops.env_step`` around the bundle flood: on a CUDA device,
+    on the bundle route (``core.flood.flood_route``), for boards whose cell
+    codes the bundle word holds (N*N <= ``MAX_BUNDLE_CELLS``), while no
+    ``GYMGO_ABLATE`` token is set."""
+    n = boards.shape[-1]
+    return (boards.is_cuda and _flood.flood_route in _flood.BUNDLE_ROUTES and n * n <= _flood.MAX_BUNDLE_CELLS
+            and not ablate)
+
+
 def step_planes(ps: PlanesState, actions: torch.Tensor):
     """Core transition on the planes state; see ``step_states``.
 
@@ -195,10 +247,111 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     without the carried planes.  On CPU tensors without ``atari`` the capture
     flood is the plain ``flood_or``, which checks its convergence on the host.
     Runs under the span ``env.rules``, its flood under ``env.flood`` and its
-    area sums under ``env.score`` (``utils.tracing``).
+    area sums under ``env.score`` (``utils.tracing``).  Under ``fused_step``
+    the hand kernels (``_step_planes_fused``), else ``step_planes_plain``.
     """
+    if fused_step(ps.black):
+        return _step_planes_fused(ps, actions)
+    return step_planes_plain(ps, actions)
+
+
+def step_planes_plain(ps: PlanesState, actions: torch.Tensor):
+    """``step_planes`` op by op in PyTorch: the plain version of the hand
+    kernels, which every device, route and board size takes."""
     with tracing.span("env.rules"):
         return _step_planes(ps, actions)
+
+
+def _kernel_actions(actions: torch.Tensor, dev) -> torch.Tensor:
+    """The actions as ``ops.env_step.rules`` takes them: int32 or int64,
+    contiguous, on ``dev``."""
+    if actions.device != dev or actions.dtype not in (torch.int32, torch.int64):
+        actions = actions.to(device=dev, dtype=torch.int64)
+    return actions.contiguous()
+
+
+def step_window_row(ps: PlanesState, x: torch.Tensor, rows, t: int, config, *, words: bool,
+                    reset: bool = False) -> PlanesState:
+    """One step of a rollout's boards, written into row ``t`` of their
+    window ``rows`` = ``(actions, rewards, dones, invalid, obs)`` (``(T, B)``
+    each, ``obs`` ``(T, B, 6, N, N)`` int8 or None); returns the new planes
+    state.
+
+    ``x`` is either the random words of ``core.actions.draw_words``
+    (``words``), from which the uniform sampler picks each board's action,
+    or the actions.  With ``reset`` the finished boards restart first
+    (``reset_finished``, span ``env.reset``); the rest runs under the span
+    ``env.step``.  The reward is ``core.score.reward_from_areas``'s under
+    ``config``.  Under ``fused_step`` one ``env_sample`` launch resets and
+    samples and ``env_score`` writes the rows; else the op-by-op code.
+    """
+    acts_out, rewards, dones, inval, obs = rows
+    fused = fused_step(ps.black)
+    if reset and not (fused and words):
+        with tracing.span("env.reset"):
+            reset_finished(ps)
+    with tracing.span("env.step"):
+        if fused:
+            acts = acts_out[t]
+            if words:  # the sampler's kernel resets the finished boards first
+                with tracing.span("env.sampler"):
+                    _kernels.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=reset, words=x,
+                                    actions=acts)
+            ps, _ = _step_planes_fused(
+                ps, acts if words else x, actions_out=None if words else acts, reward=rewards[t],
+                komi=config.komi, reward_method=config.reward_method, done_row=dones[t], invalid=inval[t],
+                states=None if obs is None else obs[t])
+            return ps
+        if words:
+            with tracing.span("env.sampler"):
+                x = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1))
+        ps, info = step_planes_plain(ps, x)
+        acts_out[t] = x
+        rewards[t] = reward_from_areas(info.black_area, info.white_area, ps.done, config)
+        dones[t] = ps.done
+        inval[t] = info.invalid_action
+        if obs is not None:
+            obs[t] = states_from_planes(ps)
+    return ps
+
+
+def _step_planes_fused(ps: PlanesState, actions: torch.Tensor, *, actions_out=None, **outputs):
+    """``step_planes_plain``'s results from the hand kernels (CUDA planes
+    that ``fused_step`` takes): ``env_rules`` (span ``env.rules``), the
+    bundle flood (``env.flood``), ``env_score`` (``env.score``); without the
+    carried ``atari`` a bundle launch on the board before the move first.
+
+    ``actions_out`` (int32 ``(B,)``) gets the actions, and ``outputs`` are
+    more outputs of ``ops.env_step.score``, which ``step_window_row`` hands
+    the rows of its window: ``reward`` with ``komi`` and ``reward_method``,
+    ``done_row``, ``states``, and ``invalid`` in place of a new tensor.
+    """
+    b, n, _ = ps.black.shape
+    dev = ps.black.device
+    with tracing.span("env.rules"):
+        word = None
+        if ps.atari is None:
+            with tracing.span("env.flood"):
+                word = bundle_flood(ps.black.contiguous(), ps.white.contiguous())
+        mover, opp, info = _kernels.rules(ps.black, ps.white, ps.invd, ps.white_to_move, ps.prev_passed, ps.done,
+                                          _kernel_actions(actions, dev), atari=ps.atari, ko_surr=ps.ko_surr,
+                                          word=word, actions_out=actions_out)
+        with tracing.span("env.flood"):
+            word = bundle_flood(mover, opp)
+        with tracing.span("env.score"):
+            plane = torch.empty((b, n, n), dtype=torch.bool, device=dev)
+            new_ps = PlanesState(
+                plane, torch.empty_like(plane), torch.empty_like(plane),
+                *(torch.empty((b,), dtype=torch.bool, device=dev) for _ in range(3)),
+                atari=None if ps.atari is None else torch.empty((b, n, n), dtype=torch.int16, device=dev),
+                ko_surr=None if ps.ko_surr is None else torch.empty_like(plane))
+            outputs.setdefault("invalid", torch.empty((b,), dtype=torch.bool, device=dev))
+            captured, black_area, white_area = (torch.empty((b,), dtype=torch.int32, device=dev) for _ in range(3))
+            _kernels.score(mover, opp, word, info, ps.invd, black=new_ps.black, white=new_ps.white, invd=new_ps.invd,
+                           atari=new_ps.atari, ko_surr=new_ps.ko_surr, wtm=new_ps.white_to_move,
+                           passed=new_ps.prev_passed, done=new_ps.done, captured=captured, black_area=black_area,
+                           white_area=white_area, **outputs)
+    return new_ps, StepInfo(outputs["invalid"], ps.done, captured, black_area, white_area)
 
 
 def _step_planes(ps: PlanesState, actions: torch.Tensor):
@@ -346,7 +499,40 @@ def step_states(states: torch.Tensor, actions: torch.Tensor):
 
     Actions are flat ints in [0, N*N]; N*N means pass.  Returns
     ``(new_states, StepInfo)``.  Envs that are already done, or whose action
-    is invalid, pass through unchanged and are flagged.
+    is invalid, pass through unchanged and are flagged.  Under
+    ``fused_step`` (states of one byte a value) the hand kernels read and
+    write the states themselves, else ``step_states_plain``.
     """
-    ps, info = step_planes(planes_from_states(states), actions)
+    if fused_step(states) and states.element_size() == 1:
+        return _step_states_fused(states.contiguous(), actions)
+    return step_states_plain(states, actions)
+
+
+def step_states_plain(states: torch.Tensor, actions: torch.Tensor):
+    """``step_states`` op by op in PyTorch (``step_planes_plain``)."""
+    ps, info = step_planes_plain(planes_from_states(states), actions)
     return states_from_planes(ps, states.dtype), info
+
+
+def _step_states_fused(states: torch.Tensor, actions: torch.Tensor):
+    """The stateless step from the hand kernels: the split and a bundle
+    launch classify the board before the move, ``env_rules`` reads the
+    states through their strides, ``env_score`` writes the new ones."""
+    b, dev = states.shape[0], states.device
+    with tracing.span("env.rules"):
+        black, white = _kernels.split(states)
+        with tracing.span("env.flood"):
+            word = bundle_flood(black, white)
+        mover, opp, info = _kernels.rules(
+            states[:, govars.BLACK], states[:, govars.WHITE], states[:, govars.INVD_CHNL],
+            states[:, govars.TURN_CHNL, 0, 0], states[:, govars.PASS_CHNL, 0, 0], states[:, govars.DONE_CHNL, 0, 0],
+            _kernel_actions(actions, dev), word=word)
+        with tracing.span("env.flood"):
+            word = bundle_flood(mover, opp)
+        with tracing.span("env.score"):
+            new_states = torch.empty_like(states)
+            invalid, was_done = (torch.empty((b,), dtype=torch.bool, device=dev) for _ in range(2))
+            captured, black_area, white_area = (torch.empty((b,), dtype=torch.int32, device=dev) for _ in range(3))
+            _kernels.score(mover, opp, word, info, states[:, govars.INVD_CHNL], states=new_states, invalid=invalid,
+                          was_done=was_done, captured=captured, black_area=black_area, white_area=white_area)
+    return new_states, StepInfo(invalid, was_done, captured, black_area, white_area)

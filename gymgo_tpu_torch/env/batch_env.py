@@ -20,11 +20,12 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gymgo_tpu_torch import govars
-from gymgo_tpu_torch.config import HEURISTIC, REAL, EnvConfig
+from gymgo_tpu_torch.config import EnvConfig
 from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.core.score import reward_from_areas
 from gymgo_tpu_torch.utils import tracing
 from gymgo_tpu_torch.utils.graphs import capturable, compiled
 
@@ -43,22 +44,6 @@ class StepResult(NamedTuple):
     num_captured: torch.Tensor  # int32 (B,): stones captured by this step
     black_area: torch.Tensor  # int32 (B,): Trump-Taylor area (post-step state)
     white_area: torch.Tensor  # int32 (B,)
-
-
-def reward_from_areas(black_area, white_area, done, config: EnvConfig) -> torch.Tensor:
-    """Reward from the step's Trump-Taylor areas, float32 (B,).
-
-    HEURISTIC pays the area difference every step and +/- N^2 at game end, a
-    tie at game end counting as a loss (the reference's quirk)."""
-    n = config.board_size
-    with tracing.span("env.score"):
-        kc = black_area.to(torch.float32) - white_area.to(torch.float32) - config.komi
-        if config.reward_method == REAL:
-            return torch.where(done, torch.sign(kc), 0.0)
-        if config.reward_method == HEURISTIC:
-            end_reward = torch.where(kc > 0, 1.0, -1.0) * (n * n)
-            return torch.where(done, end_reward, kc)
-    raise ValueError(config.reward_method)
 
 
 def batch_step(states: torch.Tensor, actions: torch.Tensor, config: EnvConfig):
@@ -154,20 +139,6 @@ def shard_over_envs(fn: Callable, mesh, concat: Optional[bool] = None) -> Callab
     return run
 
 
-def _seeded_planes(states):
-    """The rollout's planes state with its carried atari/ko planes."""
-    ps = _step.planes_from_states(states)
-    return ps._replace(atari=_step.init_atari(ps), ko_surr=_step.init_ko_surr(ps))
-
-
-def _reset_finished(ps):
-    """Zero the finished envs of the planes state in place (the carried planes
-    too): every plane is a fresh tensor owned by the rollout."""
-    reset = ps.done.clone()
-    for x in ps:
-        x.masked_fill_(reset.view((-1,) + (1,) * (x.dim() - 1)), 0)
-
-
 def rollout(
     generator: torch.Generator,
     states,
@@ -182,7 +153,10 @@ def rollout(
     ``policy_fn(generator, states) -> actions`` defaults to uniform-random over
     valid moves.  With ``config.auto_reset`` finished games restart in place
     before the next move.  The carried atari/ko planes are seeded once per
-    call; each step refreshes them from its own flood.
+    call; each step refreshes them from its own flood.  Each step is
+    ``core.step.step_window_row``, which writes the step's rows of the
+    window (on the card, ``ops.env_step``'s kernels around the bundle flood,
+    one of which resets the finished games and samples).
 
     With ``mesh`` set, ``states`` is the global batch or this process's list
     of shards (without one, a mesh of one shard on ``states``' device), and
@@ -198,24 +172,18 @@ def rollout(
     # GYMGO_ABLATE=sampler: every action 0, nothing drawn (the sampler's cost
     # taken out of the step; results wrong by design)
     no_sampler = sample and "sampler" in _step.ablate
+    draw = sample and not no_sampler
 
-    def move(ps, x):
-        if no_sampler:
-            acts = torch.zeros(ps.done.shape, dtype=torch.int32, device=ps.done.device)
-        elif sample:
-            with tracing.span("env.sampler"):
-                acts = _actions.uniform_from_words(x, ~ps.invd.reshape(ps.invd.shape[0], -1))
-        else:
-            acts = x
-        ps, info = _step.step_planes(ps, acts)
-        return ps, acts, reward_from_areas(info.black_area, info.white_area, ps.done, config), info.invalid_action
+    def move(ps, x, out, t):
+        """Step one shard and write its rows ``t`` of ``out``."""
+        return _step.step_window_row(ps, x, out, t, config, words=draw, reset=draw and config.auto_reset)
 
     if mesh is None:
         from gymgo_tpu_torch.parallel.mesh import local_mesh
 
         mesh = local_mesh(states.device)
     batch, join = mesh.global_batch(states), mesh.is_local
-    shards = shard_over_envs(_seeded_planes, mesh, concat=False)(states)
+    shards = shard_over_envs(_step.seed_planes, mesh, concat=False)(states)
     move_all = shard_over_envs(move, mesh, concat=False)
     dtype = (states[0] if isinstance(states, list) else states).dtype
     outs = []
@@ -230,12 +198,12 @@ def rollout(
                         device=dev) if collect_obs else None,
         ))
     for t in range(num_steps):
-        if config.auto_reset:
+        if config.auto_reset and not draw:  # with the sampler's words the step resets (step_window_row)
             with tracing.span("env.reset"):
                 for ps in shards:
-                    _reset_finished(ps)
+                    _step.reset_finished(ps)
         if no_sampler:
-            x = [None] * len(shards)
+            x = [torch.zeros(ps.done.shape, dtype=torch.int32, device=ps.done.device) for ps in shards]
         elif sample:
             with tracing.span("env.sampler"):
                 x = _actions.draw_words(generator, (batch,), generator.device)
@@ -244,16 +212,7 @@ def rollout(
             acts = policy_fn(generator, _tree_concat(local))
             x = list(torch.split(acts, [len(s) for s in local]))
             x = [a.to(s.device) for a, s in zip(x, local)]
-        with tracing.span("env.step"):
-            for j, (ps, acts, reward, invalid) in enumerate(move_all(shards, x)):
-                shards[j] = ps
-                acts_out, rewards, dones, inval, obs = outs[j]
-                acts_out[t] = acts
-                rewards[t] = reward
-                dones[t] = ps.done
-                inval[t] = invalid
-                if collect_obs:
-                    obs[t] = _step.states_from_planes(ps)
+        shards = move_all(shards, x, outs, t)
     fields = list(zip(*(
         Rollout(actions=o[0], rewards=o[1], dones=o[2], invalid=o[3],
                 final_states=_step.states_from_planes(ps, dtype), obs=o[4])

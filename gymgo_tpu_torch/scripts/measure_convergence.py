@@ -165,18 +165,17 @@ def measure(args, dev) -> dict:
     """The per-env count study; the kernel's word checked on the card."""
     from gymgo_tpu_torch.core import actions as _actions
     from gymgo_tpu_torch.core import step as _step
-    from gymgo_tpu_torch.env.batch_env import _reset_finished, _seeded_planes
     from gymgo_tpu_torch.ops import bundle_flood as _bundle
 
     gen = torch.Generator(device=dev).manual_seed(0)
     states = _steady_states(args, dev, gen)
     on_card = dev.type == "cuda"
     launches0 = _bundle.BUNDLE_FLOOD.launches
-    ps = _seeded_planes(states)  # the rollout's carried planes: the kernel seeds atari once
+    ps = _step.seed_planes(states)  # the rollout's carried planes: the kernel seeds atari once
     counts, stones, mismatch, check_launches = [], [], 0, 0
     t0 = time.perf_counter()
     for _ in range(args.measure_steps):
-        _reset_finished(ps)
+        _step.reset_finished(ps)
         ps, _info = _step.step_planes(ps, _actions.uniform_random_actions_planes(gen, ps))
         # the post-step board is the frozen-resolved post-capture board this step flooded
         c, word = conv_counts(ps.black, ps.white, args.maxk)
@@ -230,11 +229,10 @@ def warm_study(args, dev) -> dict:
     """The warm-start study: warm fixpoint against cold, every step."""
     from gymgo_tpu_torch.core import actions as _actions
     from gymgo_tpu_torch.core import step as _step
-    from gymgo_tpu_torch.env.batch_env import _reset_finished, _seeded_planes
 
     gen = torch.Generator(device=dev).manual_seed(0)
     states = _steady_states(args, dev, gen)
-    ps = _seeded_planes(states)
+    ps = _step.seed_planes(states)
     seed, gates = bundle_seed_and_gates(ps.black, ps.white)
     fprev, _ = run_flood(seed, gates, args.maxk)
     warm, cold, equal = [], [], []
@@ -243,7 +241,7 @@ def warm_study(args, dev) -> dict:
         prev_black = ps.black & ~reset[:, None, None]
         prev_white = ps.white & ~reset[:, None, None]
         fprev = fprev.masked_fill(reset[:, None, None], 0)
-        _reset_finished(ps)
+        _step.reset_finished(ps)
         actions = _actions.uniform_random_actions_planes(gen, ps)
         nps, info = _step.step_planes(ps, actions)
         x0, seed, gates = warm_start(fprev, prev_black, prev_white, nps.black, nps.white, actions,
