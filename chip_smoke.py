@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the script exits non-zero.
-Phases 3-7 run the default route (the bundle flood, ``GYMGO_FLOOD=bitpack``),
-phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
+Phases 3-7 run the bundle flood, which boards up to 22x22 take, phases 8-11
+the minmax route, which larger ones take (``core.flood.bundle_fits``):
 
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: nvcc builds the three flood kernels (bundle, min/max, claim),
@@ -32,14 +32,16 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      every cell, on random boards at N = 5, 9, 19, 22, 32, on the shaped
      boards and odd batches of phase 3, and on the steady-state boards of
      phase 4;
-  9. minmax route: ``rollout`` as in phase 4, from phase 4's final states, 5
-     timed windows of 64 steps (eager); the minmax kernel's launch count must
-     grow by exactly one per step plus one per rollout call, the claim
-     kernel's by one per step, the bundle kernel's not at all;
- 10. route equivalence: phase 9's first window replayed with its actions on
-     the default route on the card, and a B = 256, 200-step minmax-route
-     rollout replayed on the CPU plain path; states, rewards and dones must
-     agree;
+  9. minmax route: ``rollout`` at 25x25, B = 4096, from empty boards, a
+     256-step warmup, then 5 timed windows of 64 steps (eager); the minmax
+     kernel's launch count must grow by exactly one per step plus one per
+     rollout call, the claim kernel's by one per step, the bundle kernel's
+     not at all;
+ 10. route equivalence: ``flood_bundle_from_parts`` (the min/max and claim
+     kernels) equal to ``flood_bundle`` (the bundle kernel) on all five
+     outputs on phase 4's boards, and a 25x25 B = 256, 200-step rollout from
+     phase 9's boards replayed on the CPU plain path; states, rewards and
+     dones must agree;
  11. timing: the minmax kernel against its plain version on the steady-state
      boards of phase 4, with CUDA events, beside the byte bound;
  12. net on the card: ``load_aznet_npz`` of the committed 19x19 128x6 artifact;
@@ -170,8 +172,7 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      profile (device us/step, busy share, launches/step), the bundle
      kernel's launches (one a step plus each call's seeding, none a step
      under ``bundle``), and a 64-step B = 256 rollout replayed on the CPU
-     under the same switch; ``GYMGO_BITPACK_FIXED_ONLY`` must raise on CUDA
-     tensors without a launch; then the table of what each component costs
+     under the same switch; then the table of what each component costs
      the step; (b) ``run_gumbel_mcts`` with the 128x6 net in bfloat16 at
      B = 256, 32/16 under the ``GYMGO_GUMBEL_PACK`` layouts default,
      ``i16,logp`` and ``i16,logp,bf16`` (legal actions, 32 visits, policies
@@ -221,18 +222,15 @@ phases 8-11 the minmax route (``GYMGO_FLOOD=unrolled``):
      on every cell, on random boards at N = 5, 9, 19, 22, 23, 25, 32, the
      shaped boards at 19, 22, 25, 32, the odd batches and phase 4's
      steady-state boards, then timed (CUDA events) beside its byte bound and
-     the plain version's time; (b) ``BatchGoEnv.rollout``'s compiled 64-step
-     window at 19x19 B = 12288 on the minmax route against its eager form
-     (``utils.graphs.eager``) from the same seed, bit for bit over the first
-     call and two replays, 65 min/max, 64 claim and 0 bundle launches a
-     window, no host sync in a replay (sync debug mode error), env-steps/s
-     of both forms in turns and each one's busy share under the profiler;
-     (c) ``run_gumbel_mcts`` (B = 256, 128x6 bfloat16, 32/16) on the minmax
-     route compiled against eager, bit for bit over the first call and a
-     replay, 64 min/max and 32 claim launches and no host sync in a replay,
-     ms per simulation of both; (d) 25x25 (which the bundle word cannot
-     hold), B = 4096: a replayed 64-step window equal to the eager one bit
-     for bit with no host sync, and its first 64 envs equal to a CPU replay;
+     the plain version's time; (b) 25x25 (which the bundle word cannot
+     hold), B = 4096: a replayed 64-step window equal to its eager form
+     (``utils.graphs.eager``) bit for bit with no host sync (sync debug mode
+     error), 65 min/max, 64 claim and 0 bundle launches, and its first 64
+     envs equal to a CPU replay; (c) ``run_gumbel_mcts`` (B = 256 of (b)'s
+     boards, a 25x25 128x6 net of seeded random weights in bfloat16, 32/16)
+     compiled against eager, bit for bit over the first call and a replay,
+     64 min/max and 32 claim launches and no host sync in a replay, ms per
+     simulation of both;
  28. boards over 32x32 on the minmax route (the min/max and claim kernels
      label them a block a board, up to 181x181): (a) both kernels equal to
      their plain versions on every cell, on random boards at N = 33 ... 181
@@ -681,7 +679,7 @@ def play_path(dev, states, bundle_lib, minmax_lib):
           f"bundle launches {match19_launches}", flush=True)
     minmax_counts = {"search": search_minmax, "match_9x9": match9_minmax, "match_19x19": match19_minmax}
     if any(minmax_counts.values()):
-        fail(f"the play path launched the min/max kernel on the default route: {minmax_counts}")
+        fail(f"the play path launched the min/max kernel on boards the bundle flood takes: {minmax_counts}")
     return ({"search": search_launches, "match_9x9": match9_launches, "match_19x19": match19_launches},
             minmax_counts)
 
@@ -1655,7 +1653,6 @@ def ablation_path(dev, states, bundle_lib, minmax_lib):
     kernel's launches in each ablation's timed windows, read after them with
     the counts set to 0 before."""
     from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
-    from gymgo_tpu_torch.core import flood as tflood
     from gymgo_tpu_torch.core import step as tstep
     from gymgo_tpu_torch.env.batch_env import rollout
 
@@ -1704,22 +1701,6 @@ def ablation_path(dev, states, bundle_lib, minmax_lib):
               f"+ 1)); profiled {PROF} steps: wall {row[2]:.1f} us/step, device busy "
               f"{busy:.1f} us/step ({100 * busy * PROF / wall_us:.1f}%), {row[4]:.1f} kernel launches/step; "
               f"{STEPS_R}-step B={B_R} replay on the CPU: == card", flush=True)
-
-    # GYMGO_BITPACK_FIXED_ONLY truncates the plain flood; the kernel has no substeps to truncate
-    previous = tflood.set_bitpack_fixed_only(16)
-    bundle_lib.launches = 0
-    try:
-        rollout(torch.Generator(device=dev).manual_seed(SEED), states[:64], 1, cfg_r)
-    except ValueError as err:
-        refused = str(err)
-    else:
-        fail("24a: GYMGO_BITPACK_FIXED_ONLY did not raise on CUDA tensors")
-    finally:
-        tflood.set_bitpack_fixed_only(previous)
-    if bundle_lib.launches != 0:
-        fail(f"24a: the bundle kernel launched {bundle_lib.launches} times under GYMGO_BITPACK_FIXED_ONLY")
-    print(f"[24a FIXED_ONLY] GYMGO_BITPACK_FIXED_ONLY=1 on CUDA tensors: ValueError, no launch ({refused[:90]}...)",
-          flush=True)
 
     whole = [(a + b) / 2 for a, b in zip(table[0][1:], table[-1][1:])]
     whole = (None, *whole)
@@ -2275,25 +2256,24 @@ def no_host_sync():
 
 
 def minmax_compiled_path(dev, states, libs):
-    """Phase 27: the claim flood kernel and the minmax route compiled (CUDA
-    graphs; the claim kernel keeps its flood on the card), from phase 4's
-    steady-state 19x19 B = 12288 ``states``.  ``libs`` are the bundle,
-    min/max and claim kernels' libraries.  Sets the minmax route and leaves
-    the default one.  Returns the claim kernel's numbers: its check, its
-    times and bound, and the launches of each kernel on each path."""
+    """Phase 27: the claim flood kernel, from phase 4's steady-state 19x19
+    B = 12288 ``states``, and the minmax route compiled (CUDA graphs; the
+    claim kernel keeps its flood on the card) at 25x25, where the size rule
+    takes it.  ``libs`` are the bundle, min/max and claim kernels'
+    libraries.  Returns the claim kernel's numbers: its check, its times and
+    bound, and the launches of each kernel on each path."""
     from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
-    from gymgo_tpu_torch.convert import load_aznet_npz
-    from gymgo_tpu_torch.core import flood as tflood
     from gymgo_tpu_torch.core.flood import claim_flood_plain
     from gymgo_tpu_torch.core.state import batch_init_state
     from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
+    from gymgo_tpu_torch.models.az_net import AZNet, AZNetConfig
     from gymgo_tpu_torch.ops import claim_flood as cf
     from gymgo_tpu_torch.rl.gumbel_mcts import run_gumbel_mcts
     from gymgo_tpu_torch.utils.graphs import eager
 
     t_phase = time.perf_counter()
     fields = ("actions", "rewards", "dones", "invalid", "final_states")
-    B, N, WINDOW, REPEATS = states.shape[0], states.shape[-1], 64, 3
+    B, N = states.shape[0], states.shape[-1]
     counts = functools.partial(kernel_counts, libs)
     launched = functools.partial(kernels_launched, libs)
 
@@ -2327,155 +2307,102 @@ def minmax_compiled_path(dev, states, libs):
           f"B={B} steady state: kernel {kernel_ms:.4f} ms (again {kernel_ms_2:.4f}), plain {plain_ms:.4f} ms, "
           f"byte bound {bound_ms:.6f} ms ({(2 + 1) * B * N * N} bytes at 3.35 TB/s)", flush=True)
 
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        # (b) cell 2: the minmax route's compiled window against its eager form from the same seed, bit for bit,
-        # over the first call and two replays; the launches of all three kernels; no host sync in a replay;
-        # env-steps/s of both forms in turns; the device's busy share of each
-        cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
-        env = BatchGoEnv(cfg, device=dev)
-        if not env.compiled:
-            fail("27b: BatchGoEnv is not compiled on the minmax route on the card")
-        gc, ge = (torch.Generator(device=dev).manual_seed(SEED + 270) for _ in range(2))
-        s, window_launches = states, []
-        for i in range(3):
-            before = counts()
-            got = env.rollout(gc, s, WINDOW)
-            window_launches.append(launched(before))
-            with eager():
-                want = env.rollout(ge, s, WINDOW)
-            same(got, want, f"27b: the minmax route's compiled window at call {i}")
-            s = got.final_states
-        expected = {"bundle": 0, "minmax": WINDOW + 1, "claim": WINDOW}
-        if any(x != expected for x in window_launches):
-            fail(f"27b: launches a compiled window {window_launches}, expected {expected}")
-        if not torch.equal(gc.get_state(), ge.get_state()):
-            fail("27b: the compiled window left its generator elsewhere than the eager one")
-        (graph,) = env._rollout.graphs.values()
-        with no_host_sync():
-            env.rollout(gc, s, WINDOW)
-        torch.cuda.synchronize()  # the replay's device work ends before the first timed window starts
-        rates = {"compiled": [], "eager": []}
-        for _ in range(REPEATS):
-            for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
-                t0 = time.perf_counter()
-                r = _in(ctx, env.rollout, gc, s, WINDOW)
-                checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
-                rates[form].append(B * WINDOW / (time.perf_counter() - t0))
-                if not math.isfinite(checksum):
-                    fail(f"27b: checksum not finite: {checksum}")
-        for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
-            wall_us, rows = device_profile(lambda: _in(ctx, env.rollout, gc, s, WINDOW))
-            busy_us = sum(r[0] for r in rows)
-            if busy_us <= 0:
-                fail(f"27b: the profiler saw no device time in the {form} window")
-            print(f"[27b minmax route compiled] 19x19 B={B}, {WINDOW}-step windows, {form}: {rates_text(rates[form])}; "
-                  f"profiled {wall_us / WINDOW:.1f} us/step wall, device busy {busy_us / WINDOW:.1f} us/step "
-                  f"({100 * busy_us / wall_us:.1f}% busy), {sum(r[1] for r in rows) / WINDOW:.1f} kernels/step",
-                  flush=True)
-        print(f"[27b minmax route compiled] == eager bit for bit over a first call and 2 replays (actions, rewards, "
-              f"dones, invalid, final states, the generator); launches a window {window_launches[-1]}; 0 host syncs "
-              f"in a replay (sync debug mode error); graph {graph.nodes} nodes ({graph.nodes / WINDOW:.1f} a step), "
-              f"captured in {graph.capture_seconds:.3f} s", flush=True)
+    # (b) 25x25, which the bundle word cannot hold, so it takes the minmax route: B = 4096 compiled windows (the
+    # first from fresh boards captures, the second replays) against the eager window, bit for bit; a B = 64 slice
+    # replayed on the CPU
+    N25, B25, W25 = 25, 4096, 64
+    cfg25 = EnvConfig(board_size=N25, batch_size=B25, reward_method=HEURISTIC, auto_reset=True)
+    env25 = BatchGoEnv(cfg25, device=dev)
+    if not env25.compiled:
+        fail("27b: BatchGoEnv is not compiled at 25x25")
+    g25 = torch.Generator(device=dev).manual_seed(SEED + 272)
+    t0 = time.perf_counter()
+    first = env25.rollout(g25, batch_init_state(B25, N25, device=dev), W25)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start = first.final_states
+    ge25 = torch.Generator(device=dev).manual_seed(SEED + 273)
+    g25.manual_seed(SEED + 273)
+    before = counts()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        got = env25.rollout(g25, start, W25)
+    got.rewards.sum().item()
+    replay_s = time.perf_counter() - t0
+    launches25 = launched(before)
+    t0 = time.perf_counter()
+    with eager():
+        want = env25.rollout(ge25, start, W25)
+    want.rewards.sum().item()
+    eager_s = time.perf_counter() - t0
+    same(got, want, "27b: the 25x25 compiled window")
+    expected = {"bundle": 0, "minmax": W25 + 1, "claim": W25}
+    if launches25 != expected:
+        fail(f"27b: launches a replayed 25x25 window {launches25}, expected {expected}")
+    acts = iter(got.actions[:, :64].cpu())
+    cpu = rollout(torch.Generator(), start[:64].cpu(), W25, EnvConfig(board_size=N25, batch_size=64,
+                  reward_method=HEURISTIC, auto_reset=True), policy_fn=lambda _g, _s: next(acts))
+    rows = {"final_states": got.final_states[:64], "rewards": got.rewards[:, :64], "dones": got.dones[:, :64]}
+    for field, x in rows.items():
+        if not torch.equal(x.cpu(), getattr(cpu, field)):
+            fail(f"27b: the 25x25 window's first 64 envs differ from the CPU replay on {field}")
+    if got.invalid.any() or not (got.rewards != 0).any():
+        fail("27b: an invalid action, or no reward read from the claimed areas, in the 25x25 window")
+    print(f"[27b 25x25 compiled] B={B25}, {W25}-step windows on the minmax route: a replay == eager bit for bit "
+          f"(0 host syncs, launches {launches25}), its first 64 envs == the CPU replay; first window (eager, then "
+          f"the capture) {first_s:.2f} s, a replay {replay_s:.3f} s ({B25 * W25 / replay_s:.1f} env-steps/s), "
+          f"eager {eager_s:.3f} s ({B25 * W25 / eager_s:.1f} env-steps/s)", flush=True)
 
-        # (c) cell 3 on the minmax route: the compiled Gumbel search against the eager one, bit for bit over the
-        # first call and a replay; launches and no host sync in a replay; ms per simulation of both forms
-        SIMS, CONSIDERED, SB = 32, 16, 256
-        net16 = load_aznet_npz(NET_19, device=dev, dtype=torch.bfloat16)
-        roots = states[:SB].clone()
+    # (c) the compiled Gumbel search on the minmax route against the eager one, bit for bit over the first call
+    # and a replay; launches and no host sync in a replay; ms per simulation of both forms.  No committed net
+    # plays 25x25: a 128x6 AZNet of seeded random weights in bfloat16
+    SIMS, CONSIDERED, SB = 32, 16, 256
+    torch.manual_seed(SEED + 274)
+    net25 = AZNet(AZNetConfig(board_size=N25)).to(dev).eval().requires_grad_(False)
+    roots = got.final_states[:SB].clone()
 
-        def search(seed, ctx):
-            with ctx():
-                return run_gumbel_mcts(torch.Generator(device=dev).manual_seed(seed), roots, net16,
-                                       num_simulations=SIMS, max_considered=CONSIDERED)
+    def search(seed, ctx):
+        with ctx():
+            return run_gumbel_mcts(torch.Generator(device=dev).manual_seed(seed), roots, net25,
+                                   num_simulations=SIMS, max_considered=CONSIDERED)
 
-        for i in range(2):
-            got, want = search(SEED + 271 + i, contextlib.nullcontext), search(SEED + 271 + i, eager)
-            if not all(torch.equal(p, q) for p, q in zip(got, want)):
-                fail(f"27c: the compiled search on the minmax route differs from the eager one at call {i}")
-        before = counts()
-        with no_host_sync():
-            search(SEED + 271, contextlib.nullcontext)
-        search_launches = launched(before)
-        expected = {"bundle": 0, "minmax": 2 * SIMS, "claim": SIMS}
-        if search_launches != expected:
-            fail(f"27c: launches a replayed search {search_launches}, expected {expected}")
-        search_ms = {}
-        for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager), ("compiled", contextlib.nullcontext)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            search(SEED + 271, ctx)
-            torch.cuda.synchronize()
-            search_ms.setdefault(form, []).append(1e3 * (time.perf_counter() - t0) / SIMS)
-        print(f"[27c minmax route compiled search] 19x19 128x6 bfloat16, B={SB}, Gumbel {SIMS}/{CONSIDERED}: compiled "
-              f"== eager bit for bit over the first call and a replay; a replay launches {search_launches}, 0 host "
-              f"syncs; ms/simulation compiled {min(search_ms['compiled']):.3f} "
-              f"({SB / (SIMS * min(search_ms['compiled']) / 1e3):.1f} searches/s), eager {search_ms['eager'][0]:.3f}",
-              flush=True)
-
-        # (d) 25x25, which the bundle word cannot hold: B = 4096 compiled windows (the first from fresh boards
-        # captures, the second replays) against the eager window, bit for bit; a B = 64 slice replayed on the CPU
-        N25, B25, W25 = 25, 4096, 64
-        cfg25 = EnvConfig(board_size=N25, batch_size=B25, reward_method=HEURISTIC, auto_reset=True)
-        env25 = BatchGoEnv(cfg25, device=dev)
-        if not env25.compiled:
-            fail("27d: BatchGoEnv is not compiled at 25x25 on the minmax route")
-        g25 = torch.Generator(device=dev).manual_seed(SEED + 272)
-        t0 = time.perf_counter()
-        first = env25.rollout(g25, batch_init_state(B25, N25, device=dev), W25)
+    for i in range(2):
+        got_s, want_s = search(SEED + 271 + i, contextlib.nullcontext), search(SEED + 271 + i, eager)
+        if not all(torch.equal(p, q) for p, q in zip(got_s, want_s)):
+            fail(f"27c: the compiled search on the minmax route differs from the eager one at call {i}")
+    before = counts()
+    with no_host_sync():
+        search(SEED + 271, contextlib.nullcontext)
+    search_launches = launched(before)
+    expected = {"bundle": 0, "minmax": 2 * SIMS, "claim": SIMS}
+    if search_launches != expected:
+        fail(f"27c: launches a replayed search {search_launches}, expected {expected}")
+    search_ms = {}
+    for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager), ("compiled", contextlib.nullcontext)):
         torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        start = first.final_states
-        ge25 = torch.Generator(device=dev).manual_seed(SEED + 273)
-        g25.manual_seed(SEED + 273)
-        before = counts()
         t0 = time.perf_counter()
-        with no_host_sync():
-            got = env25.rollout(g25, start, W25)
-        got.rewards.sum().item()
-        replay_s = time.perf_counter() - t0
-        launches25 = launched(before)
-        t0 = time.perf_counter()
-        with eager():
-            want = env25.rollout(ge25, start, W25)
-        want.rewards.sum().item()
-        eager_s = time.perf_counter() - t0
-        same(got, want, "27d: the 25x25 compiled window")
-        expected = {"bundle": 0, "minmax": W25 + 1, "claim": W25}
-        if launches25 != expected:
-            fail(f"27d: launches a replayed 25x25 window {launches25}, expected {expected}")
-        acts = iter(got.actions[:, :64].cpu())
-        cpu = rollout(torch.Generator(), start[:64].cpu(), W25, EnvConfig(board_size=N25, batch_size=64,
-                      reward_method=HEURISTIC, auto_reset=True), policy_fn=lambda _g, _s: next(acts))
-        rows = {"final_states": got.final_states[:64], "rewards": got.rewards[:, :64], "dones": got.dones[:, :64]}
-        for field, x in rows.items():
-            if not torch.equal(x.cpu(), getattr(cpu, field)):
-                fail(f"27d: the 25x25 window's first 64 envs differ from the CPU replay on {field}")
-        if got.invalid.any() or not (got.rewards != 0).any():
-            fail("27d: an invalid action, or no reward read from the claimed areas, in the 25x25 window")
-        print(f"[27d 25x25 compiled] B={B25}, {W25}-step windows on the minmax route: a replay == eager bit for bit "
-              f"(0 host syncs, launches {launches25}), its first 64 envs == the CPU replay; first window (eager, then "
-              f"the capture) {first_s:.2f} s, a replay {replay_s:.3f} s ({B25 * W25 / replay_s:.1f} env-steps/s), "
-              f"eager {eager_s:.3f} s ({B25 * W25 / eager_s:.1f} env-steps/s); phase "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    finally:
-        tflood.set_flood_route(previous)
+        search(SEED + 271, ctx)
+        torch.cuda.synchronize()
+        search_ms.setdefault(form, []).append(1e3 * (time.perf_counter() - t0) / SIMS)
+    print(f"[27c minmax route compiled search] 25x25 128x6 (random weights) bfloat16, B={SB}, Gumbel "
+          f"{SIMS}/{CONSIDERED}: compiled == eager bit for bit over the first call and a replay; a replay launches "
+          f"{search_launches}, 0 host syncs; ms/simulation compiled {min(search_ms['compiled']):.3f} "
+          f"({SB / (SIMS * min(search_ms['compiled']) / 1e3):.1f} searches/s), eager {search_ms['eager'][0]:.3f}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {
         "max_abs_err": err, "ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "window": window_launches[-1], "search": search_launches, "window_25x25": launches25,
+        "window": launches25, "search": search_launches,
     }
 
 
 def big_boards_path(dev, libs):
     """Phase 28: boards over 32x32 on the minmax route, which the min/max and
     claim kernels label a block a board up to 181x181.  ``libs`` are the
-    bundle, min/max and claim kernels' libraries.  Sets the minmax route and
-    leaves the default one.  Returns each kernel's check, times, bounds and
-    plain times at 64x64 B = 1024 and 181x181 B = 128, and the launches of
-    each path."""
+    bundle, min/max and claim kernels' libraries.  Returns each kernel's
+    check, times, bounds and plain times at 64x64 B = 1024 and 181x181
+    B = 128, and the launches of each path."""
     from gymgo_tpu_torch import gogame
     from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
-    from gymgo_tpu_torch.core import flood as tflood
     from gymgo_tpu_torch.core import score as tscore
     from gymgo_tpu_torch.core.flood import claim_flood_plain, minmax_flood_plain
     from gymgo_tpu_torch.env import GoEnv
@@ -2519,157 +2446,153 @@ def big_boards_path(dev, libs):
           f"claim kernels bit-exact on every cell (max |diff| {err}); {time.perf_counter() - t0:.1f} s", flush=True)
 
     out = {"max_abs_err": err}
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        # (b) 64x64 B = 1024 (cell 10) and (c) 181x181 B = 128: the compiled window from fresh boards (the first
-        # call runs eagerly and captures), replays to warm up, then two replays against the eager window from the
-        # same boards and seed, bit for bit, with no host sync in a replay; a slice replayed on the CPU; both
-        # forms timed in turns and profiled; both kernels timed on the last boards
-        for tag, N, B, W, WARM, SLICE in (("28b", 64, 1024, 64, 1024, 16), ("28c", 181, 128, 16, 512, 2)):
-            t_size = time.perf_counter()
-            cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
-            env = BatchGoEnv(cfg, device=dev)
-            if not env.compiled:
-                fail(f"{tag}: BatchGoEnv is not compiled at {N}x{N} on the minmax route")
-            g = torch.Generator(device=dev).manual_seed(SEED + 280 + N)
-            t0 = time.perf_counter()
-            s = env.rollout(g, env.reset(), W).final_states
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            for _ in range(WARM // W - 1):
-                s = env.rollout(g, s, W).final_states
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-            gc, ge = (torch.Generator(device=dev).manual_seed(SEED + 281 + N) for _ in range(2))
-            window_launches = []
-            for i in range(2):
-                start = s
-                before = counts()
-                with no_host_sync():
-                    got = env.rollout(gc, start, W)
-                window_launches.append(launched(before))
-                with eager():
-                    want = env.rollout(ge, start, W)
-                for field in fields:
-                    if not torch.equal(getattr(got, field), getattr(want, field)):
-                        fail(f"{tag}: the {N}x{N} compiled window differs from the eager one on {field} at replay {i}")
-                s = got.final_states
-            expected = {"bundle": 0, "minmax": W + 1, "claim": W}
-            if any(x != expected for x in window_launches):
-                fail(f"{tag}: launches a replayed {N}x{N} window {window_launches}, expected {expected}")
-            if not torch.equal(gc.get_state(), ge.get_state()):
-                fail(f"{tag}: the compiled window left its generator elsewhere than the eager one")
-            if got.invalid.any() or not (got.rewards != 0).any():
-                fail(f"{tag}: an invalid action, or no reward read from the claimed areas, in the {N}x{N} window")
-            acts = iter(got.actions[:, :SLICE].cpu())
-            cpu = rollout(torch.Generator(), start[:SLICE].cpu(), W, EnvConfig(board_size=N, batch_size=SLICE,
-                          reward_method=HEURISTIC, auto_reset=True), policy_fn=lambda _g, _s: next(acts))
-            rows = {"final_states": got.final_states[:SLICE], "rewards": got.rewards[:, :SLICE],
-                    "dones": got.dones[:, :SLICE]}
-            for field, x in rows.items():
-                if not torch.equal(x.cpu(), getattr(cpu, field)):
-                    fail(f"{tag}: the {N}x{N} window's first {SLICE} envs differ from the CPU replay on {field}")
-            torch.cuda.synchronize()
-            rates = {"compiled": [], "eager": []}
-            for _ in range(3):
-                for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
-                    t0 = time.perf_counter()
-                    r = _in(ctx, env.rollout, gc, s, W)
-                    checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
-                    rates[form].append(B * W / (time.perf_counter() - t0))
-                    if not math.isfinite(checksum):
-                        fail(f"{tag}: checksum not finite: {checksum}")
-            busy = {}
-            for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
-                wall_us, rows = device_profile(lambda: _in(ctx, env.rollout, gc, s, W))
-                busy_us = sum(r[0] for r in rows)
-                if busy_us <= 0:
-                    fail(f"{tag}: the profiler saw no device time in the {form} window")
-                busy[form] = (wall_us / W, busy_us / W, 100 * busy_us / wall_us, sum(r[1] for r in rows) / W)
-            stones = s[:, :2].to(torch.int32).sum().item() / B
-            for form in ("compiled", "eager"):
-                wall, dev_us, share, kernels = busy[form]
-                print(f"[{tag} {N}x{N} minmax route] B={B}, {W}-step windows, {form}: {rates_text(rates[form])}; "
-                      f"profiled {wall:.1f} us/step wall, device busy {dev_us:.1f} us/step ({share:.1f}% busy), "
-                      f"{kernels:.1f} kernels/step", flush=True)
-
-            # the two kernels on the window's last boards, by CUDA events, beside their byte bounds
-            a, b = boards_of(s)
-            before = counts()
-            mm = [time_ms(lambda: mf.minmax_flood_cuda(a, b), 100)]
-            cl = [time_ms(lambda: cf.claim_flood_cuda(a, b), 100)]
-            mm_plain = time_ms(lambda: minmax_flood_plain(a, b), 3)
-            cl_plain = time_ms(lambda: claim_flood_plain(a, b), 3)
-            mm.append(time_ms(lambda: mf.minmax_flood_cuda(a, b), 100))
-            cl.append(time_ms(lambda: cf.claim_flood_cuda(a, b), 100))
-            restore_counts(libs, before)
-            kmn, kmx = mf.minmax_flood_cuda(a, b)
-            pmn, pmx = minmax_flood_plain(a, b)
-            if not (torch.equal(kmn, pmn) and torch.equal(kmx, pmx) and torch.equal(cf.claim_flood_cuda(a, b),
-                                                                                    claim_flood_plain(a, b))):
-                fail(f"{tag}: a kernel != plain on the {N}x{N} window's boards")
-            cells = B * N * N
-            # 2 bytes in (two uint8 planes) per cell; 4 out (two int16 planes) for min/max, 1 (uint8) for claims
-            mm_bound, cl_bound = (2 + 4) * cells / H100_BYTES_PER_S * 1e3, (2 + 1) * cells / H100_BYTES_PER_S * 1e3
-            print(f"[{tag} {N}x{N} kernels] B={B} ({cells} cells, {stones:.1f} stones a board): min/max kernel "
-                  f"{mm[0]:.4f} ms (again {mm[1]:.4f}), plain {mm_plain:.4f} ms, byte bound {mm_bound:.6f} ms; claim "
-                  f"kernel {cl[0]:.4f} ms (again {cl[1]:.4f}), plain {cl_plain:.4f} ms, byte bound {cl_bound:.6f} ms",
-                  flush=True)
-            (graph,) = env._rollout.graphs.values()
-            print(f"[{tag} {N}x{N} compiled] == eager bit for bit over 2 replays (actions, rewards, dones, invalid, "
-                  f"final states, the generator), 0 host syncs in a replay (sync debug mode error), launches a window "
-                  f"{window_launches[-1]}; its first {SLICE} envs == the CPU replay; first window (eager, then the "
-                  f"capture) {first_s:.2f} s, {WARM - W} warmup steps replayed in {warm_s:.2f} s; graph {graph.nodes} "
-                  f"nodes; {time.perf_counter() - t_size:.1f} s", flush=True)
-            out[N] = {"minmax_ms": min(mm), "minmax_plain_ms": mm_plain, "minmax_bound_ms": mm_bound,
-                      "claim_ms": min(cl), "claim_plain_ms": cl_plain, "claim_bound_ms": cl_bound,
-                      "window": window_launches[-1]}
-
-            # the area score of the window's boards on the card against the CPU (a slice at 181: the CPU's
-            # flood by rounds crosses the board's empty region)
-            k = B if N <= 64 else 8
-            for got_area, want_area in zip(tscore.areas(s), tscore.areas(s[:k].cpu())):
-                if not torch.equal(got_area[:k].cpu(), want_area):
-                    fail(f"{tag}: score.areas at {N}x{N}: the card and the CPU differ")
-
-        # (d) GoEnv and gogame at 37x37 on the card (compiled, a stateless step a move) against the CPU
-        MOVES = 300
+    # (b) 64x64 B = 1024 (cell 10) and (c) 181x181 B = 128: the compiled window from fresh boards (the first
+    # call runs eagerly and captures), replays to warm up, then two replays against the eager window from the
+    # same boards and seed, bit for bit, with no host sync in a replay; a slice replayed on the CPU; both
+    # forms timed in turns and profiled; both kernels timed on the last boards
+    for tag, N, B, W, WARM, SLICE in (("28b", 64, 1024, 64, 1024, 16), ("28c", 181, 128, 16, 512, 2)):
+        t_size = time.perf_counter()
+        cfg = EnvConfig(board_size=N, batch_size=B, reward_method=HEURISTIC, auto_reset=True)
+        env = BatchGoEnv(cfg, device=dev)
+        if not env.compiled:
+            fail(f"{tag}: BatchGoEnv is not compiled at {N}x{N} on the minmax route")
+        g = torch.Generator(device=dev).manual_seed(SEED + 280 + N)
         t0 = time.perf_counter()
-        np.random.seed(SEED + 28)
+        s = env.rollout(g, env.reset(), W).final_states
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(WARM // W - 1):
+            s = env.rollout(g, s, W).final_states
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        gc, ge = (torch.Generator(device=dev).manual_seed(SEED + 281 + N) for _ in range(2))
+        window_launches = []
+        for i in range(2):
+            start = s
+            before = counts()
+            with no_host_sync():
+                got = env.rollout(gc, start, W)
+            window_launches.append(launched(before))
+            with eager():
+                want = env.rollout(ge, start, W)
+            for field in fields:
+                if not torch.equal(getattr(got, field), getattr(want, field)):
+                    fail(f"{tag}: the {N}x{N} compiled window differs from the eager one on {field} at replay {i}")
+            s = got.final_states
+        expected = {"bundle": 0, "minmax": W + 1, "claim": W}
+        if any(x != expected for x in window_launches):
+            fail(f"{tag}: launches a replayed {N}x{N} window {window_launches}, expected {expected}")
+        if not torch.equal(gc.get_state(), ge.get_state()):
+            fail(f"{tag}: the compiled window left its generator elsewhere than the eager one")
+        if got.invalid.any() or not (got.rewards != 0).any():
+            fail(f"{tag}: an invalid action, or no reward read from the claimed areas, in the {N}x{N} window")
+        acts = iter(got.actions[:, :SLICE].cpu())
+        cpu = rollout(torch.Generator(), start[:SLICE].cpu(), W, EnvConfig(board_size=N, batch_size=SLICE,
+                      reward_method=HEURISTIC, auto_reset=True), policy_fn=lambda _g, _s: next(acts))
+        rows = {"final_states": got.final_states[:SLICE], "rewards": got.rewards[:, :SLICE],
+                "dones": got.dones[:, :SLICE]}
+        for field, x in rows.items():
+            if not torch.equal(x.cpu(), getattr(cpu, field)):
+                fail(f"{tag}: the {N}x{N} window's first {SLICE} envs differ from the CPU replay on {field}")
+        torch.cuda.synchronize()
+        rates = {"compiled": [], "eager": []}
+        for _ in range(3):
+            for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+                t0 = time.perf_counter()
+                r = _in(ctx, env.rollout, gc, s, W)
+                checksum = (r.final_states.to(torch.int32).sum() + r.rewards.sum()).item()
+                rates[form].append(B * W / (time.perf_counter() - t0))
+                if not math.isfinite(checksum):
+                    fail(f"{tag}: checksum not finite: {checksum}")
+        busy = {}
+        for form, ctx in (("compiled", contextlib.nullcontext), ("eager", eager)):
+            wall_us, rows = device_profile(lambda: _in(ctx, env.rollout, gc, s, W))
+            busy_us = sum(r[0] for r in rows)
+            if busy_us <= 0:
+                fail(f"{tag}: the profiler saw no device time in the {form} window")
+            busy[form] = (wall_us / W, busy_us / W, 100 * busy_us / wall_us, sum(r[1] for r in rows) / W)
+        stones = s[:, :2].to(torch.int32).sum().item() / B
+        for form in ("compiled", "eager"):
+            wall, dev_us, share, kernels = busy[form]
+            print(f"[{tag} {N}x{N} minmax route] B={B}, {W}-step windows, {form}: {rates_text(rates[form])}; "
+                  f"profiled {wall:.1f} us/step wall, device busy {dev_us:.1f} us/step ({share:.1f}% busy), "
+                  f"{kernels:.1f} kernels/step", flush=True)
+
+        # the two kernels on the window's last boards, by CUDA events, beside their byte bounds
+        a, b = boards_of(s)
         before = counts()
-        envs = [GoEnv(37, reward_method="heuristic", backend="torch", device=dev),
-                GoEnv(37, reward_method="heuristic", backend="torch", device="cpu")]
-        env_moves = 0
-        for t in range(MOVES):
-            act = envs[0].uniform_random_action()
-            (obs, reward, done, info), (o, r, d, i) = (e.step(act) for e in envs)
-            env_moves += 1
-            if not (np.array_equal(o, obs) and r == reward and d == done
-                    and np.array_equal(i["invalid_moves"], info["invalid_moves"])):
-                fail(f"28d: GoEnv 37x37 on the card differs from the CPU at move {t}")
-            if done:
-                break
-        env_launches = launched(before)
-        before = counts()
-        state = gogame.init_state(37)
-        for t in range(MOVES):
-            act = gogame.random_action(state)
-            card = gogame.next_state(state, act, device=dev)
-            if not np.array_equal(card, gogame.next_state(state, act, device="cpu")):
-                fail(f"28d: gogame.next_state at 37x37: the card and the CPU differ at move {t}")
-            state = card
-        gogame_launches = launched(before)
-        if env_launches["minmax"] < 2 * env_moves or gogame_launches["minmax"] < 2 * MOVES or \
-                env_launches["bundle"] or gogame_launches["bundle"]:
-            fail(f"28d: launches GoEnv {env_launches}, gogame {gogame_launches}")
-        print(f"[28d 37x37] GoEnv (torch on the card, compiled) == torch on the CPU over {env_moves} moves, "
-              f"launches {env_launches}; gogame.next_state == CPU over {MOVES} moves, launches {gogame_launches}; "
-              f"score.areas at 64x64 and 181x181 == CPU; {time.perf_counter() - t0:.1f} s; phase "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-        out.update(go_env=env_launches, gogame=gogame_launches)
-    finally:
-        tflood.set_flood_route(previous)
+        mm = [time_ms(lambda: mf.minmax_flood_cuda(a, b), 100)]
+        cl = [time_ms(lambda: cf.claim_flood_cuda(a, b), 100)]
+        mm_plain = time_ms(lambda: minmax_flood_plain(a, b), 3)
+        cl_plain = time_ms(lambda: claim_flood_plain(a, b), 3)
+        mm.append(time_ms(lambda: mf.minmax_flood_cuda(a, b), 100))
+        cl.append(time_ms(lambda: cf.claim_flood_cuda(a, b), 100))
+        restore_counts(libs, before)
+        kmn, kmx = mf.minmax_flood_cuda(a, b)
+        pmn, pmx = minmax_flood_plain(a, b)
+        if not (torch.equal(kmn, pmn) and torch.equal(kmx, pmx) and torch.equal(cf.claim_flood_cuda(a, b),
+                                                                                claim_flood_plain(a, b))):
+            fail(f"{tag}: a kernel != plain on the {N}x{N} window's boards")
+        cells = B * N * N
+        # 2 bytes in (two uint8 planes) per cell; 4 out (two int16 planes) for min/max, 1 (uint8) for claims
+        mm_bound, cl_bound = (2 + 4) * cells / H100_BYTES_PER_S * 1e3, (2 + 1) * cells / H100_BYTES_PER_S * 1e3
+        print(f"[{tag} {N}x{N} kernels] B={B} ({cells} cells, {stones:.1f} stones a board): min/max kernel "
+              f"{mm[0]:.4f} ms (again {mm[1]:.4f}), plain {mm_plain:.4f} ms, byte bound {mm_bound:.6f} ms; claim "
+              f"kernel {cl[0]:.4f} ms (again {cl[1]:.4f}), plain {cl_plain:.4f} ms, byte bound {cl_bound:.6f} ms",
+              flush=True)
+        (graph,) = env._rollout.graphs.values()
+        print(f"[{tag} {N}x{N} compiled] == eager bit for bit over 2 replays (actions, rewards, dones, invalid, "
+              f"final states, the generator), 0 host syncs in a replay (sync debug mode error), launches a window "
+              f"{window_launches[-1]}; its first {SLICE} envs == the CPU replay; first window (eager, then the "
+              f"capture) {first_s:.2f} s, {WARM - W} warmup steps replayed in {warm_s:.2f} s; graph {graph.nodes} "
+              f"nodes; {time.perf_counter() - t_size:.1f} s", flush=True)
+        out[N] = {"minmax_ms": min(mm), "minmax_plain_ms": mm_plain, "minmax_bound_ms": mm_bound,
+                  "claim_ms": min(cl), "claim_plain_ms": cl_plain, "claim_bound_ms": cl_bound,
+                  "window": window_launches[-1]}
+
+        # the area score of the window's boards on the card against the CPU (a slice at 181: the CPU's
+        # flood by rounds crosses the board's empty region)
+        k = B if N <= 64 else 8
+        for got_area, want_area in zip(tscore.areas(s), tscore.areas(s[:k].cpu())):
+            if not torch.equal(got_area[:k].cpu(), want_area):
+                fail(f"{tag}: score.areas at {N}x{N}: the card and the CPU differ")
+
+    # (d) GoEnv and gogame at 37x37 on the card (compiled, a stateless step a move) against the CPU
+    MOVES = 300
+    t0 = time.perf_counter()
+    np.random.seed(SEED + 28)
+    before = counts()
+    envs = [GoEnv(37, reward_method="heuristic", backend="torch", device=dev),
+            GoEnv(37, reward_method="heuristic", backend="torch", device="cpu")]
+    env_moves = 0
+    for t in range(MOVES):
+        act = envs[0].uniform_random_action()
+        (obs, reward, done, info), (o, r, d, i) = (e.step(act) for e in envs)
+        env_moves += 1
+        if not (np.array_equal(o, obs) and r == reward and d == done
+                and np.array_equal(i["invalid_moves"], info["invalid_moves"])):
+            fail(f"28d: GoEnv 37x37 on the card differs from the CPU at move {t}")
+        if done:
+            break
+    env_launches = launched(before)
+    before = counts()
+    state = gogame.init_state(37)
+    for t in range(MOVES):
+        act = gogame.random_action(state)
+        card = gogame.next_state(state, act, device=dev)
+        if not np.array_equal(card, gogame.next_state(state, act, device="cpu")):
+            fail(f"28d: gogame.next_state at 37x37: the card and the CPU differ at move {t}")
+        state = card
+    gogame_launches = launched(before)
+    if env_launches["minmax"] < 2 * env_moves or gogame_launches["minmax"] < 2 * MOVES or \
+            env_launches["bundle"] or gogame_launches["bundle"]:
+        fail(f"28d: launches GoEnv {env_launches}, gogame {gogame_launches}")
+    print(f"[28d 37x37] GoEnv (torch on the card, compiled) == torch on the CPU over {env_moves} moves, "
+          f"launches {env_launches}; gogame.next_state == CPU over {MOVES} moves, launches {gogame_launches}; "
+          f"score.areas at 64x64 and 181x181 == CPU; {time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update(go_env=env_launches, gogame=gogame_launches)
     return out
 
 
@@ -2977,16 +2900,14 @@ def late_phases(states) -> dict:
 
 
 def late_main(boards: str, result: str) -> int:
-    """The process of ``late_phases``: phases 25-30 on the default route from
-    the boards in the file ``boards``; their results into the file
-    ``result``."""
-    from gymgo_tpu_torch.core import flood as tflood
+    """The process of ``late_phases``: phases 25-30 from the boards in the
+    file ``boards``; their results into the file ``result``."""
+    import gymgo_tpu_torch.core  # noqa: F401  (before the ops: core and ops.bundle_flood import each other)
     from gymgo_tpu_torch.ops import bundle_flood as bf
     from gymgo_tpu_torch.ops import claim_flood as cf
     from gymgo_tpu_torch.ops import group_norm_act as gna
     from gymgo_tpu_torch.ops import minmax_flood as mf
 
-    tflood.set_flood_route("bitpack")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
@@ -3021,8 +2942,6 @@ def main() -> int:
     from gymgo_tpu_torch.ops import env_step as es
     from gymgo_tpu_torch.ops import group_norm_act as gna
     from gymgo_tpu_torch.ops import minmax_flood as mf
-
-    tflood.set_flood_route("bitpack")  # phases 3-7 run the default route
 
     t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3093,7 +3012,7 @@ def main() -> int:
         fail(f"bundle flood launched {launches} times on the main path, expected {expected}")
     if minmax_on_default != 0 or cf.CLAIM_FLOOD.launches != 0:
         fail(f"minmax flood launched {minmax_on_default} times, claim flood {cf.CLAIM_FLOOD.launches} times, "
-             f"on the default route")
+             f"at 19x19")
     if int(n_invalid) != 0:
         fail(f"{int(n_invalid)} steps flagged an invalid action on the main path")
     stones = states[:, :2].to(torch.int32).sum().item() / B
@@ -3160,48 +3079,48 @@ def main() -> int:
     print(f"[8 minmax kernel vs plain] {len(cases)} cases bit-exact on every cell "
           f"(max |diff| {mm_err})", flush=True)
 
-    # 9. the minmax route, from phase 4's steady-state states
-    tflood.set_flood_route("unrolled")
+    # 9. the minmax route: 25x25, which the bundle word cannot hold, from empty boards
+    N9, B9, WARM9 = 25, 4096, 256
+    cfg9 = EnvConfig(board_size=N9, batch_size=B9, reward_method=HEURISTIC, auto_reset=True)
     gen9 = torch.Generator(device=dev).manual_seed(SEED + 9)
     bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = cf.CLAIM_FLOOD.launches = 0
-    rates9, runs9, starts9 = timed_windows(rollout, gen9, states, cfg, WINDOW, REPEATS)
+    s9 = rollout(gen9, batch_init_state(B9, N9, device=dev), WARM9, cfg9).final_states
+    rates9, runs9, _ = timed_windows(rollout, gen9, s9, cfg9, WINDOW, REPEATS)
     mm_launches, bundle_on_minmax = mf.MINMAX_FLOOD.launches, bf.BUNDLE_FLOOD.launches
     claim_launches = cf.CLAIM_FLOOD.launches
-    if mm_launches != REPEATS * (WINDOW + 1):
+    if mm_launches != (WARM9 + 1) + REPEATS * (WINDOW + 1):
         fail(f"minmax flood launched {mm_launches} times on the minmax route, "
-             f"expected {REPEATS * (WINDOW + 1)}")
-    if claim_launches != REPEATS * WINDOW:
-        fail(f"claim flood launched {claim_launches} times on the minmax route, expected {REPEATS * WINDOW}")
+             f"expected {(WARM9 + 1) + REPEATS * (WINDOW + 1)}")
+    if claim_launches != WARM9 + REPEATS * WINDOW:
+        fail(f"claim flood launched {claim_launches} times on the minmax route, "
+             f"expected {WARM9 + REPEATS * WINDOW}")
     if bundle_on_minmax != 0:
         fail(f"bundle flood launched {bundle_on_minmax} times on the minmax route")
     if any(int(x.invalid.sum()) for x in runs9):
         fail("a step flagged an invalid action on the minmax route")
-    print(f"[9 minmax route] 19x19 B={B}: {rates_text(rates9)}; games finished "
+    print(f"[9 minmax route] 25x25 B={B9} after a {WARM9}-step warmup: {rates_text(rates9)}; games finished "
           f"{int(sum(x.dones.sum() for x in runs9))}; minmax kernel launches {mm_launches}, "
           f"claim kernel launches {claim_launches}, bundle kernel launches {bundle_on_minmax}", flush=True)
 
-    # 10. route equivalence: card minmax route -> card bundle route, and -> CPU
-    tflood.set_flood_route("bitpack")
-    acts = iter(runs9[0].actions)
-    rb = rollout(gen9, starts9[0], WINDOW, cfg, policy_fn=lambda _g, _s: next(acts))
-    for field in ("final_states", "rewards", "dones"):
-        if not torch.equal(getattr(runs9[0], field), getattr(rb, field)):
-            fail(f"minmax and bundle routes disagree on {field}")
-    tflood.set_flood_route("unrolled")
+    # 10. route equivalence: the minmax route's five outputs against the bundle flood's on phase 4's boards, and
+    # the minmax route on the card against the CPU plain path
+    for what, x, y in zip(("one_lib", "multi_lib", "only_a", "only_b", "atari_enc"),
+                          tflood.flood_bundle_from_parts(a, b), tflood.flood_bundle(a, b)):
+        if not torch.equal(x, y):
+            fail(f"minmax route and bundle flood disagree on {what} on phase 4's boards")
+    cfg_r9 = EnvConfig(board_size=N9, batch_size=256, reward_method=HEURISTIC, auto_reset=True)
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     start = runs9[-1].final_states[:256].clone()
-    rc = rollout(g, start, 200, cfg_r)
+    rc = rollout(g, start, 200, cfg_r9)
     acts = iter(rc.actions.cpu())
     rh = rollout(torch.Generator().manual_seed(0), start.cpu(), 200,
-                 cfg_r, policy_fn=lambda _g, _s: next(acts))
+                 cfg_r9, policy_fn=lambda _g, _s: next(acts))
     for field in ("final_states", "rewards", "dones"):
         if not torch.equal(getattr(rc, field).cpu(), getattr(rh, field)):
             fail(f"minmax route: card and CPU replay disagree on {field}")
-    tflood.set_flood_route("bitpack")
-    print(f"[10 route equivalence] 19x19 B={B} {WINDOW} steps: minmax route == bundle route "
-          f"on final states, rewards, dones ({int(rb.dones.sum())} games finished); "
-          f"19x19 B=256 200 steps: minmax route on the card == CPU plain path "
-          f"({int(rc.dones.sum())} games finished)", flush=True)
+    print(f"[10 route equivalence] 19x19 B={B} steady state: flood_bundle_from_parts (min/max and claim kernels) "
+          f"== flood_bundle (bundle kernel) on all five outputs; 25x25 B=256 200 steps: minmax route on the card "
+          f"== CPU plain path ({int(rc.dones.sum())} games finished)", flush=True)
 
     # 11. minmax kernel time against the plain version's, on phase 4's boards
     launches_before = mf.MINMAX_FLOOD.launches
@@ -3280,9 +3199,8 @@ def main() -> int:
         "launches_gogame": gogame_minmax,
         "launches_go_env": env_minmax,
         "launches_gtp": gtp_minmax,
-        "launches_compiled_minmax_window": claim["window"]["minmax"],
-        "launches_compiled_minmax_search": claim["search"]["minmax"],
-        "launches_compiled_25x25_window": claim["window_25x25"]["minmax"],
+        "launches_compiled_25x25_window": claim["window"]["minmax"],
+        "launches_compiled_25x25_search": claim["search"]["minmax"],
         "launches_compiled_64x64_window": big[64]["window"]["minmax"],
         "launches_compiled_181x181_window": big[181]["window"]["minmax"],
         "launches_go_env_37x37": big["go_env"]["minmax"],
@@ -3306,11 +3224,10 @@ def main() -> int:
         "route": "cuda",
         "source": "gymgo_tpu_torch/csrc/claim_flood.cu",
         "replaces": "gymgo_tpu/core/flood.py:190 (flood_or_unrolled, an XLA while_loop; no Pallas kernel)",
-        # the minmax route's compiled window (27b), the slice's main path
+        # the minmax route's compiled 25x25 window (27b)
         "launches": claim["window"]["claim"],
         "launches_minmax_route_eager": claim_launches,
-        "launches_compiled_minmax_search": claim["search"]["claim"],
-        "launches_compiled_25x25_window": claim["window_25x25"]["claim"],
+        "launches_compiled_25x25_search": claim["search"]["claim"],
         "launches_compiled_64x64_window": big[64]["window"]["claim"],
         "launches_compiled_181x181_window": big[181]["window"]["claim"],
         "launches_go_env_37x37": big["go_env"]["claim"],

@@ -29,27 +29,14 @@ host every few substeps:
 
 The kernels converge each board on its own without a host sync.
 
-Routes.  As in the JAX package, ``GYMGO_FLOOD`` (read at import; default
-``bitpack``) selects what ``flood_bundle_best`` and
-``liberty_classification_best`` are: ``bitpack``, ``gatepack`` and ``pallas``
-the bundle flood, every other value the minmax route
-(``flood_bundle_from_parts``: the min/max classification plus the claim
-flood).  ``set_flood_route`` re-binds them inside a process.
-
-Truncation.  ``GYMGO_BITPACK_FIXED_ONLY=1`` (read at import with
-``GYMGO_BITPACK_PREFIX``, default 16, as in the JAX package) makes
-``bundle_flood_plain`` run exactly ``PREFIX // 2`` rounds of (forward,
-reverse) substeps and stop, converged or not: JAX's schedule, so the word
-equals ``flood_bundle_bitpack``'s under the same switch.  It takes the flood's
-convergence out of a cost decomposition; results are wrong by design.  The
-CUDA kernel labels components and has no substeps to cut short, so the
-bundle flood raises on CUDA tensors while it is set.
-``set_bitpack_fixed_only`` switches it inside a process.
+The size rule.  ``bundle_fits`` decides which flood a board takes: boards
+whose cell codes the bundle word holds (N*N <= ``MAX_BUNDLE_CELLS``, up to
+22x22) the bundle flood, larger ones the minmax route (the min/max
+classification plus the claim flood), on CPU and CUDA tensors alike; the
+card's kernels take boards up to ``MAX_KERNEL_BOARD`` (``capturable``).
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -74,17 +61,21 @@ __all__ = [
     "unpack_bundle",
     "flood_bundle",
     "flood_bundle_from_parts",
-    "set_flood_route",
-    "set_bitpack_fixed_only",
     "flood_or_best",
     "liberty_classification_best",
     "flood_bundle_best",
-    "BUNDLE_ROUTES",
+    "bundle_fits",
+    "capturable",
+    "capturable_states",
     "MAX_BUNDLE_CELLS",
+    "MAX_KERNEL_BOARD",
 ]
 
 # The bundle word's 9-bit liberty-code field holds flat index + 1 <= N*N.
 MAX_BUNDLE_CELLS = (1 << 9) - 1
+# The largest board the card's kernels take: the min/max and claim kernels'
+# int16 indices stop at 181x181, as the JAX package's do.
+MAX_KERNEL_BOARD = 181
 _MASK9 = (1 << 9) - 1
 _BIT_A = 1 << 18
 _BIT_B = 1 << 19
@@ -93,22 +84,6 @@ _DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 # Substeps between the plain floods' convergence checks (each check syncs
 # with the host); substeps past the fixpoint are no-ops.
 _UNROLL = 4
-# GYMGO_BITPACK_FIXED_ONLY: the prefix of substeps the plain bundle flood runs
-# and stops after, or None (the flood runs to its fixpoint).
-fixed_only_prefix = (int(os.environ.get("GYMGO_BITPACK_PREFIX", "16"))
-                     if os.environ.get("GYMGO_BITPACK_FIXED_ONLY") == "1" else None)
-
-
-def set_bitpack_fixed_only(prefix):
-    """Truncate the plain bundle flood to ``prefix // 2`` rounds of (forward,
-    reverse) substeps (``GYMGO_BITPACK_FIXED_ONLY=1`` with
-    ``GYMGO_BITPACK_PREFIX=prefix``), or, with ``None``, let it converge;
-    returns the value in force before."""
-    global fixed_only_prefix
-    if prefix is not None and (isinstance(prefix, bool) or not isinstance(prefix, int) or prefix < 0):
-        raise ValueError(f"prefix must be None or an int >= 0, got {prefix!r}")
-    previous, fixed_only_prefix = fixed_only_prefix, prefix
-    return previous
 
 
 def shift(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
@@ -338,18 +313,12 @@ def bundle_flood_plain(mover: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
     flooded within same-class runs (mover-mover, opp-opp, empty-empty) to the
     fixpoint.  The fixpoint is unique, so the order of propagation does not
     matter.  Checks convergence on the host, so it syncs with the device.
-    Under ``GYMGO_BITPACK_FIXED_ONLY`` it runs JAX's fixed prefix instead (see
-    the module's docstring) and makes no check.
     """
     if mover.shape[-1] * mover.shape[-2] > MAX_BUNDLE_CELLS:
         raise ValueError(
             f"bundle flood needs N*N <= {MAX_BUNDLE_CELLS}, got {tuple(mover.shape)}"
         )
     x, gates = bundle_seed_and_gates(mover, opp)
-    if fixed_only_prefix is not None:
-        for _ in range(fixed_only_prefix // 2):
-            x = bundle_substep(bundle_substep(x, gates), gates, reverse=True)
-        return x
     while True:
         nx = x
         for _ in range(_UNROLL):
@@ -429,29 +398,41 @@ def flood_bundle_from_parts(color_a: torch.Tensor, color_b: torch.Tensor):
     return one_lib, multi_lib, claims == 1, claims == 2, atari_enc
 
 
-# Every GYMGO_FLOOD value of the JAX package floods claims with an OR-flood of
-# the same fixpoint; its bundle and minmax routes use flood_or_unrolled.
+# The JAX package floods claims with an OR-flood of the same fixpoint on its
+# bundle and minmax routes alike: flood_or_unrolled.
 flood_or_best = flood_or_unrolled
-# The GYMGO_FLOOD values that select the bundle flood; any other selects the
-# minmax route, as the JAX package's dispatch does.
-BUNDLE_ROUTES = ("bitpack", "gatepack", "pallas")
-flood_route = None
 
 
-def set_flood_route(name: str):
-    """Bind ``liberty_classification_best`` and ``flood_bundle_best`` for the
-    ``GYMGO_FLOOD`` value ``name``; returns the value bound before.
-
-    The step and ``init_atari`` look ``flood_bundle_best`` up at call time, so
-    this switches the route of every later call in the process.
-    """
-    global flood_route, liberty_classification_best, flood_bundle_best
-    previous = flood_route
-    bundle = name in BUNDLE_ROUTES
-    liberty_classification_best = liberty_classes_bitpack if bundle else liberty_classes_from_minmax
-    flood_bundle_best = flood_bundle if bundle else flood_bundle_from_parts
-    flood_route = name
-    return previous
+def bundle_fits(n: int) -> bool:
+    """True when N x N boards take the bundle flood: their cell codes fit
+    the bundle word (N*N <= ``MAX_BUNDLE_CELLS``, up to 22x22).  Larger
+    boards take the minmax route."""
+    return n * n <= MAX_BUNDLE_CELLS
 
 
-set_flood_route(os.environ.get("GYMGO_FLOOD", "bitpack"))
+def liberty_classification_best(color_a: torch.Tensor, color_b: torch.Tensor):
+    """(one_lib, multi_lib, atari_enc) by the flood ``bundle_fits`` picks."""
+    if bundle_fits(color_a.shape[-1]):
+        return liberty_classes_bitpack(color_a, color_b)
+    return liberty_classes_from_minmax(color_a, color_b)
+
+
+def flood_bundle_best(color_a: torch.Tensor, color_b: torch.Tensor):
+    """The bundle flood's five outputs by the flood ``bundle_fits`` picks."""
+    if bundle_fits(color_a.shape[-1]):
+        return flood_bundle(color_a, color_b)
+    return flood_bundle_from_parts(color_a, color_b)
+
+
+def capturable(board_size: int) -> bool:
+    """True when the step, the rollout and the area score of ``board_size``
+    boards run on the card's kernels, which make no host sync, so a CUDA
+    graph may hold them (N <= ``MAX_KERNEL_BOARD``); larger boards run
+    eagerly, where the kernels raise."""
+    return board_size <= MAX_KERNEL_BOARD
+
+
+def capturable_states(arguments: dict) -> bool:
+    """The ``when`` of a compiled function of ``states``: ``capturable`` of
+    their board size."""
+    return capturable(arguments["states"].shape[-1])

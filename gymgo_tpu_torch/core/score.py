@@ -4,11 +4,10 @@
 Every cell of an empty region learns whether the region touches black and/or
 white; a region counts for a colour iff it touches only that colour.  On CUDA
 tensors the claims are read from the bundle word of the hand kernel, as the
-step reads them, with no host sync, whatever the flood route (the JAX package
-scores by one flood on every route too); boards too large for the bundle word
-(N*N > 511, up to 181x181) take the claim flood's hand kernel, with no host sync
-either.  CPU tensors take the claim flood's plain version, which checks its
-convergence on the host.
+step reads them, with no host sync; boards too large for the bundle word
+(``core.flood.bundle_fits``: over 22x22, up to 181x181) take the claim flood's
+hand kernel, with no host sync either.  CPU tensors take the claim flood's
+plain version, which checks its convergence on the host.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ def _claims(black: torch.Tensor, white: torch.Tensor):
     """(only_black, only_white): empty cells whose region touches one colour."""
     black, white = black.contiguous(), white.contiguous()
     with tracing.span("env.flood"):
-        if black.is_cuda and black[0].numel() <= _flood.MAX_BUNDLE_CELLS:
+        if black.is_cuda and _flood.bundle_fits(black.shape[-1]):
             return _flood.flood_bundle(black, white)[2:4]
         claims = claim_flood(black, white)
         return claims == 1, claims == 2

@@ -12,11 +12,11 @@ Algorithm (the same as the JAX package's, so results agree bit for bit):
   sole liberty is the point just played.  Without it, CPU tensors take the
   JAX package's stateless path, a plain OR-flood of "touches an empty cell"
   through the opponent's stones.  CUDA tensors classify the board before the
-  move with one launch of the selected route's kernel instead: a group dies
+  move with one launch of its flood's kernel instead: a group dies
   iff its sole liberty is the point played or it stands without a liberty
   already (a hand-made board), which is what that flood finds.
-* One flood of the post-capture board, by the route ``core.flood`` selects
-  (``flood_bundle_best``: the bundle flood by default, else the minmax
+* One flood of the post-capture board, the one ``core.flood``'s size rule
+  picks (``flood_bundle_best``: the bundle flood up to 22x22, else the minmax
   route), classifies every group by its number of distinct liberties
   (0 / 1 / >= 2), claims empty regions for Trump-Taylor areas and yields the
   next step's ``atari`` plane.
@@ -25,13 +25,13 @@ Algorithm (the same as the JAX package's, so results agree bit for bit):
 
 On the card.  ``fused_step`` decides, from what it can see, whether a step
 runs as the hand kernels of ``ops.env_step`` around the bundle flood: CUDA
-tensors, the bundle route, boards whose cells the bundle word holds, and no
-ablation token.  There the step is three launches on the carried path
+tensors, boards that take the bundle flood (``core.flood.bundle_fits``), and
+no ablation token.  There the step is three launches on the carried path
 (``env_rules``, the bundle flood, ``env_score``; the rollout's sampler adds
 ``env_sample``) and five on the stateless one (``env_split`` and a bundle
 launch on the board before the move first), each result equal bit for bit to
-the op-by-op ``step_planes_plain``, which every other case runs: the CPU, the
-minmax route, boards over 22x22 and the ablations.
+the op-by-op ``step_planes_plain``, which every other case runs: the CPU,
+boards over 22x22 and the ablations.
 
 Ablation.  ``GYMGO_ABLATE`` (read at import, a comma list, as in the JAX
 package) names step components to skip so that the step's cost can be taken
@@ -59,6 +59,7 @@ from gymgo_tpu_torch.core.score import reward_from_areas
 from gymgo_tpu_torch.ops import env_step as _kernels
 from gymgo_tpu_torch.ops.bundle_flood import bundle_flood
 from gymgo_tpu_torch.utils import tracing
+from gymgo_tpu_torch.utils.graphs import register_key_part
 
 __all__ = [
     "StepInfo",
@@ -83,6 +84,8 @@ __all__ = [
 # The GYMGO_ABLATE tokens: the step's six, and the rollout's sampler.
 ABLATE_TOKENS = ("hit", "ko", "capsum", "bundle", "areas", "invd", "sampler")
 ablate = frozenset(x for x in os.environ.get("GYMGO_ABLATE", "").split(",") if x)
+# a graph captured under one ablation never replays under another
+register_key_part(lambda: tuple(sorted(ablate)))
 
 
 def set_ablate(tokens) -> frozenset:
@@ -178,7 +181,7 @@ def init_ko_surr(ps: PlanesState) -> torch.Tensor:
 
 def init_atari(ps: PlanesState) -> torch.Tensor:
     """Seed the carried atari encoding for an arbitrary board (one liberty
-    classification of the selected route; every later ``step_planes``
+    classification by ``core.flood``'s size rule; every later ``step_planes``
     refreshes it for free)."""
     with tracing.span("env.flood"):
         return _flood.liberty_classification_best(ps.black.contiguous(), ps.white.contiguous())[2]
@@ -232,20 +235,17 @@ def invalid_action_flags(states: torch.Tensor, actions: torch.Tensor) -> torch.T
 def fused_step(boards: torch.Tensor) -> bool:
     """True when a step of ``boards`` (``(..., N, N)``) runs as the hand
     kernels of ``ops.env_step`` around the bundle flood: on a CUDA device,
-    on the bundle route (``core.flood.flood_route``), for boards whose cell
-    codes the bundle word holds (N*N <= ``MAX_BUNDLE_CELLS``), while no
-    ``GYMGO_ABLATE`` token is set."""
-    n = boards.shape[-1]
-    return (boards.is_cuda and _flood.flood_route in _flood.BUNDLE_ROUTES and n * n <= _flood.MAX_BUNDLE_CELLS
-            and not ablate)
+    for boards that take the bundle flood (``core.flood.bundle_fits``),
+    while no ``GYMGO_ABLATE`` token is set."""
+    return boards.is_cuda and _flood.bundle_fits(boards.shape[-1]) and not ablate
 
 
 def step_planes(ps: PlanesState, actions: torch.Tensor):
     """Core transition on the planes state; see ``step_states``.
 
-    On CUDA tensors it makes no host sync on the default route, with or
-    without the carried planes.  On CPU tensors without ``atari`` the capture
-    flood is the plain ``flood_or``, which checks its convergence on the host.
+    On CUDA tensors it makes no host sync, with or without the carried
+    planes.  On CPU tensors without ``atari`` the capture flood is the plain
+    ``flood_or``, which checks its convergence on the host.
     Runs under the span ``env.rules``, its flood under ``env.flood`` and its
     area sums under ``env.score`` (``utils.tracing``).  Under ``fused_step``
     the hand kernels (``_step_planes_fused``), else ``step_planes_plain``.
@@ -257,7 +257,7 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
 
 def step_planes_plain(ps: PlanesState, actions: torch.Tensor):
     """``step_planes`` op by op in PyTorch: the plain version of the hand
-    kernels, which every device, route and board size takes."""
+    kernels, which every device and board size takes."""
     with tracing.span("env.rules"):
         return _step_planes(ps, actions)
 

@@ -25,9 +25,10 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
+from gymgo_tpu_torch.core.flood import capturable
 from gymgo_tpu_torch.core.score import reward_from_areas
 from gymgo_tpu_torch.utils import tracing
-from gymgo_tpu_torch.utils.graphs import capturable, compiled
+from gymgo_tpu_torch.utils.graphs import compiled
 
 __all__ = ["StepResult", "Rollout", "reward_from_areas", "batch_step", "shard_over_envs", "rollout",
            "BatchGoEnv"]
@@ -239,9 +240,8 @@ class BatchGoEnv:
     into the graph: hand such a policy to the plain ``rollout``).
 
     ``compiled`` says whether the graphs are used: it is false on the CPU and
-    on boards over the route's kernels' size (22x22 on the bundle route,
-    181x181 on the minmax route, ``GYMGO_FLOOD=unrolled`` and every non-bundle
-    value), and there the methods run the eager functions.
+    on boards over 181x181 (``core.flood.capturable``), and there the methods
+    run the eager functions.
     """
 
     def __init__(self, config: EnvConfig, device=None):
@@ -255,8 +255,8 @@ class BatchGoEnv:
     @property
     def compiled(self) -> bool:
         """True when ``step``, ``rollout`` and ``uniform_random_actions``
-        replay CUDA graphs: on the card, at a board size the route's kernels
-        take (``utils.graphs.capturable``)."""
+        replay CUDA graphs: on the card, at a board size the card's kernels
+        take (``core.flood.capturable``)."""
         return self.device.type == "cuda" and capturable(self.config.board_size)
 
     def reset(self) -> torch.Tensor:

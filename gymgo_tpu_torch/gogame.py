@@ -12,8 +12,7 @@ compiled once at import, as the JAX package jits them (``_step_states``,
 ``_batch_canonical``, ``_children_jit``, ``_areas_jit``,
 ``_num_liberties_jit``, ``_liberties_jit``): on the card each replays a CUDA
 graph per input shape, but the step, ``children`` and the score run their
-eager functions on boards over the route's kernels' size (22x22 on the
-bundle route, 181x181 on the minmax route).
+eager functions on boards over 181x181 (``core.flood.capturable``).
 Importing this module touches no device.
 
 The contract is the JAX package's:
@@ -36,10 +35,11 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
+from gymgo_tpu_torch.core.flood import capturable
 from gymgo_tpu_torch.core.state import resolve_device
 from gymgo_tpu_torch.utils import render as _render
 from gymgo_tpu_torch.utils import tracing
-from gymgo_tpu_torch.utils.graphs import capturable, compiled
+from gymgo_tpu_torch.utils.graphs import compiled
 
 _OUT_DTYPE = np.float64
 
@@ -55,7 +55,7 @@ _liberties_jit = compiled(_score.liberties)
 def _run(fn, states, *args, **kw):
     """The compiled ``fn`` (a step or a score) on ``states``, or its eager
     function where that work syncs with the host
-    (``utils.graphs.capturable``)."""
+    (``core.flood.capturable``)."""
     return (fn if capturable(states.shape[-1]) else fn.fn)(states, *args, **kw)
 
 

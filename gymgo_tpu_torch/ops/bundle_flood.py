@@ -5,9 +5,7 @@ Built and loaded at first use by ``gymgo_tpu_torch.ops.cuda_lib``.
 
 ``bundle_flood`` takes the plain PyTorch version
 (``gymgo_tpu_torch.core.flood.bundle_flood_plain``) only for tensors that lie on
-the CPU; for CUDA tensors it launches the kernel or raises.  It raises too
-while ``GYMGO_BITPACK_FIXED_ONLY`` truncates the plain flood: the kernel has no
-substeps to truncate, and its converged word would not be what was asked for.
+the CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,7 +14,6 @@ import ctypes
 
 import torch
 
-from gymgo_tpu_torch.core import flood as _flood
 from gymgo_tpu_torch.core.flood import MAX_BUNDLE_CELLS, bundle_flood_plain
 from gymgo_tpu_torch.ops.cuda_lib import CSRC, CudaKernelLib, check_planes
 
@@ -45,10 +42,5 @@ def bundle_flood(mover: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
     """Bundle word of two stone planes: the kernel on CUDA tensors, the plain
     version on CPU tensors."""
     if mover.is_cuda:
-        if _flood.fixed_only_prefix is not None:
-            raise ValueError(
-                "GYMGO_BITPACK_FIXED_ONLY truncates the plain bundle flood to a fixed prefix of "
-                "substeps; the CUDA kernel labels components and has no substeps to truncate: "
-                "unset it (core.flood.set_bitpack_fixed_only(None)) to flood CUDA tensors")
         return bundle_flood_cuda(mover, opp)
     return bundle_flood_plain(mover, opp)

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from gymgo_tpu_torch.core.flood import claim_flood_plain
+from gymgo_tpu_torch.core.flood import MAX_KERNEL_BOARD, claim_flood_plain
 from gymgo_tpu_torch.ops.cuda_lib import CSRC, CudaKernelLib, check_planes
 
 __all__ = ["CLAIM_FLOOD", "MAX_CLAIM_CELLS", "claim_flood", "claim_flood_cuda"]
@@ -24,7 +24,7 @@ __all__ = ["CLAIM_FLOOD", "MAX_CLAIM_CELLS", "claim_flood", "claim_flood_cuda"]
 SOURCE = CSRC / "claim_flood.cu"
 # One warp a board up to 32x32, one block a board up to 181x181, the min/max
 # flood's largest board (the minmax route's).
-MAX_CLAIM_CELLS = 181 * 181
+MAX_CLAIM_CELLS = MAX_KERNEL_BOARD * MAX_KERNEL_BOARD
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (mover, opp, out, batch, n, stream)
 CLAIM_FLOOD = CudaKernelLib(SOURCE, "claim_flood_launch", (_P, _P, _P, _I, _I, _P))

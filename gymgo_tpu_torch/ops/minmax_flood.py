@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from gymgo_tpu_torch.core.flood import minmax_flood_plain
+from gymgo_tpu_torch.core.flood import MAX_KERNEL_BOARD, minmax_flood_plain
 from gymgo_tpu_torch.ops.cuda_lib import CSRC, CudaKernelLib, check_planes
 
 __all__ = ["MINMAX_FLOOD", "MAX_MINMAX_CELLS", "minmax_flood", "minmax_flood_cuda"]
@@ -23,7 +23,7 @@ __all__ = ["MINMAX_FLOOD", "MAX_MINMAX_CELLS", "minmax_flood", "minmax_flood_cud
 SOURCE = CSRC / "minmax_flood.cu"
 # One warp a board up to 32x32, one block a board up to 181x181: the largest
 # board whose indices and N*N the int16 output holds.
-MAX_MINMAX_CELLS = 181 * 181
+MAX_MINMAX_CELLS = MAX_KERNEL_BOARD * MAX_KERNEL_BOARD
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (mover, opp, mn, mx, batch, n, stream)
 MINMAX_FLOOD = CudaKernelLib(SOURCE, "minmax_flood_launch", (_P, _P, _P, _P, _I, _I, _P))

@@ -18,9 +18,10 @@ from gymgo_tpu_torch import govars
 from gymgo_tpu_torch.config import EnvConfig
 from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import state as _state
+from gymgo_tpu_torch.core.flood import capturable
 from gymgo_tpu_torch.env import batch_env as _batch_env
 from gymgo_tpu_torch.parallel import mesh as _mesh
-from gymgo_tpu_torch.utils.graphs import capturable, compiled
+from gymgo_tpu_torch.utils.graphs import compiled
 
 __all__ = ["ShardedGoEnv"]
 
@@ -48,8 +49,8 @@ class ShardedGoEnv:
     over all of its shards (``rollout`` keyed as ``BatchGoEnv.rollout`` is):
     the per-shard work makes no collective, and the sampler's words are still
     drawn once for the whole batch inside the graph.  ``compiled`` is false,
-    and the eager functions run, on the CPU, on boards over the route's
-    kernels' size (``utils.graphs.capturable``), and where this process's
+    and the eager functions run, on the CPU, on boards over 181x181
+    (``core.flood.capturable``), and where this process's
     shards lie on more than one card (a graph runs on one).
     """
 
@@ -71,7 +72,7 @@ class ShardedGoEnv:
     @property
     def compiled(self) -> bool:
         """True when ``step`` and ``rollout`` replay CUDA graphs: this
-        process's shards on one card, at a board size the route's kernels
+        process's shards on one card, at a board size the card's kernels
         take."""
         return (self._device is not None and self._device.type == "cuda"
                 and capturable(self.config.board_size))

@@ -13,8 +13,7 @@ a policy object built once replays across matches).  The "every game is
 done" check stays between the replays, one host read a ply.  A policy must
 be a function of its ``(generator, states)`` on the card with no host sync:
 one that reads Python state replays what it read at the capture.  Boards
-over the route's kernels' size (22x22 on the bundle route, 181x181 on the
-minmax route) play eagerly (``utils.graphs.capturable``).
+over 181x181 play eagerly (``core.flood.capturable``).
 """
 
 from __future__ import annotations
@@ -29,7 +28,8 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
-from gymgo_tpu_torch.utils.graphs import capturable_states, compiled
+from gymgo_tpu_torch.core.flood import capturable_states
+from gymgo_tpu_torch.utils.graphs import compiled
 
 __all__ = ["MatchResult", "play_match", "with_pass_to_win"]
 

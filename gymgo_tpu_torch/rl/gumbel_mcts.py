@@ -46,10 +46,9 @@ On CUDA tensors a whole search is one CUDA graph, the counterpart of the
 JAX package's ``lax.fori_loop`` over the simulations under ``jax.jit``
 (``utils.graphs.compiled``): keyed by the net (by identity), the simulation
 counts, the constants and the tree layout, replayed with the states, the
-generator and the noise copied in.  Boards over the route's kernels' size
-(22x22 on the bundle route, 181x181 on the minmax route) run the search
-eagerly (``utils.graphs.capturable``); ``run_gumbel_mcts.fn`` is the eager search,
-which the studies measure.
+generator and the noise copied in.  Boards over 181x181 run the search
+eagerly (``core.flood.capturable``); ``run_gumbel_mcts.fn`` is the eager
+search, which the studies measure.
 
 Ties are resolved as in JAX so that, given the same Gumbel noise, both
 packages search the same tree: the top-k and the rank of the candidates come
@@ -70,9 +69,10 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
+from gymgo_tpu_torch.core.flood import capturable_states
 from gymgo_tpu_torch.rl import treewalk as _treewalk
 from gymgo_tpu_torch.utils import tracing
-from gymgo_tpu_torch.utils.graphs import capturable_states, compiled, register_key_part
+from gymgo_tpu_torch.utils.graphs import compiled, register_key_part
 
 __all__ = ["GumbelMCTSResult", "LearnedMCTSResult", "seq_halving_schedule", "run_gumbel_mcts",
            "make_gumbel_mcts_policy", "PACK_TOKENS", "set_gumbel_pack"]

@@ -16,9 +16,8 @@ graph, the counterpart of the JAX package's ``lax.fori_loop`` over the waves
 under ``jax.jit`` (``utils.graphs.compiled``): a search is keyed by the net
 (by identity), the simulation counts, the constants and ``return_tree``, and
 replayed with the states, the generator, the noise and the warm statistics
-or tree copied in; ``compact_subtree`` by ``reuse_cap``.  Boards over the
-route's kernels' size (22x22 on the bundle route, 181x181 on the minmax route)
-search eagerly (``utils.graphs.capturable``); ``.fn`` is the eager function.
+or tree copied in; ``compact_subtree`` by ``reuse_cap``.  Boards over 181x181
+search eagerly (``core.flood.capturable``); ``.fn`` is the eager function.
 
 Ties break as in JAX (first-of-equals argmax, ``rl.treewalk``), so with the
 same Dirichlet and pick noise both packages grow the same trees.  Output: the
@@ -35,8 +34,9 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import step as _step
 from gymgo_tpu_torch.core import transform as _transform
+from gymgo_tpu_torch.core.flood import capturable_states
 from gymgo_tpu_torch.rl import treewalk as _treewalk
-from gymgo_tpu_torch.utils.graphs import capturable_states, compiled
+from gymgo_tpu_torch.utils.graphs import compiled
 
 __all__ = [
     "MCTSResult",

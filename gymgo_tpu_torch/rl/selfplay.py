@@ -11,9 +11,8 @@ inside it runs inline, so its kernels join the move's graph): the Python
 loop over the window replays it once a move and writes its rows into
 preallocated ``(T, B, ...)`` tensors; the value targets are computed once a
 window, eagerly.  A window keeps one graph per mode, net, configuration,
-batch and search setting, and a move makes no host sync.  Boards over the
-route's kernels' size (22x22 on the bundle route, 181x181 on the minmax route)
-run the move eagerly (``utils.graphs.capturable``).
+batch and search setting, and a move makes no host sync.  Boards over 181x181
+run the move eagerly (``core.flood.capturable``).
 
 Every draw the JAX package takes from a key can be handed in instead
 (``gumbel``, ``dirichlet``, ``orientations``), one row per step of the window,
@@ -31,8 +30,9 @@ from gymgo_tpu_torch.core import actions as _actions
 from gymgo_tpu_torch.core import score as _score
 from gymgo_tpu_torch.core import state as _state
 from gymgo_tpu_torch.core import transform as _transform
+from gymgo_tpu_torch.core.flood import capturable
 from gymgo_tpu_torch.env import batch_env as _batch_env
-from gymgo_tpu_torch.utils.graphs import capturable, compiled
+from gymgo_tpu_torch.utils.graphs import compiled
 
 __all__ = [
     "SelfPlayBatch",

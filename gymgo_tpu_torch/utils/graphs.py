@@ -14,12 +14,11 @@ kernels' plain versions serve the CPU.
 
 The key holds the shapes, dtypes and devices of the tensor arguments, the
 values of the static arguments, the device of each ``torch.Generator``
-argument, the flood route (``core.flood.flood_route``), the ``GYMGO_ABLATE``
-tokens, the ``GYMGO_BITPACK_FIXED_ONLY`` prefix and the value of every
-function a module registered with ``register_key_part`` (the Gumbel tree
-layout, ``rl.gumbel_mcts.pack``), so a switch never replays a graph captured
-under another setting.  Every other argument is a tree (tuples, named tuples,
-lists, dicts) of tensors, generators and ``None``.
+argument and the value of every function a module registered with
+``register_key_part`` (the ``GYMGO_ABLATE`` tokens, the Gumbel tree layout),
+so a switch never replays a graph captured under another setting.  Every
+other argument is a tree (tuples, named tuples, lists, dicts) of tensors,
+generators and ``None``.
 
 Nested calls: a compiled function called while a graph is being captured
 (a search inside a captured self-play move) runs its function inline, so its
@@ -33,10 +32,9 @@ What a graph may hold:
 
 * No host sync: a sync inside the capture makes the capture fail, and a failed
   capture raises; nothing falls back to eager running on the card.  Every
-  flood on the card is a hand kernel that makes none, up to the kernels'
-  board sizes: 22x22 on the bundle route, 181x181 on the minmax route.  Boards
-  over those run eagerly (``capturable``, which ``compiled(..., when=)`` reads
-  per call), where the kernels raise.
+  flood on the card is a hand kernel that makes none, up to 181x181.  Larger
+  boards run eagerly (``core.flood.capturable``, which ``compiled(...,
+  when=)`` reads per call), where the kernels raise.
 * Draws from a ``torch.Generator`` argument: the graph draws from a
   generator of its own, registered with it
   (``CUDAGraph.register_generator_state``), which each replay sets to the
@@ -68,36 +66,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from gymgo_tpu_torch.core import flood as _flood
-from gymgo_tpu_torch.core import step as _step
-from gymgo_tpu_torch.ops.claim_flood import MAX_CLAIM_CELLS
-from gymgo_tpu_torch.ops.minmax_flood import MAX_MINMAX_CELLS
 from gymgo_tpu_torch.utils import tracing
 
-__all__ = ["compiled", "Compiled", "CapturedGraph", "capturable", "capturable_states", "register_key_part", "eager"]
+__all__ = ["compiled", "Compiled", "CapturedGraph", "register_key_part", "eager"]
 
 # functions of no argument whose values join every key (``register_key_part``)
 _KEY_PARTS: list = []
 # > 0 inside ``eager()`` (an outer key's eager first run among them): compiled calls run inline
 _inline = 0
-
-
-def capturable(board_size: int) -> bool:
-    """True when the step, the rollout and the area score of ``board_size``
-    boards run on the card's kernels, which make no host sync: on the bundle
-    route boards whose cell codes the bundle word holds (N*N <= 511), on the
-    minmax route boards the min/max and claim kernels take (N <= 181, where
-    their int16 indices stop, as the JAX package's do)."""
-    cells = board_size * board_size
-    if _flood.flood_route in _flood.BUNDLE_ROUTES:
-        return cells <= _flood.MAX_BUNDLE_CELLS
-    return cells <= min(MAX_MINMAX_CELLS, MAX_CLAIM_CELLS)
-
-
-def capturable_states(arguments: dict) -> bool:
-    """The ``when`` of a compiled function of ``states``: ``capturable`` of
-    their board size."""
-    return capturable(arguments["states"].shape[-1])
 
 
 def register_key_part(part: Callable[[], object]) -> None:
@@ -285,7 +261,7 @@ class Compiled:
 
     def _call(self, args, kwargs) -> _Call:
         """The call's bound arguments and key: each static argument's value,
-        each other argument's structure, and the process's switches."""
+        each other argument's structure, and the registered parts."""
         bound = self.signature.bind(*args, **kwargs)
         leaves, dynamic, parts = [], [], []
         for name, value in bound.arguments.items():
@@ -294,8 +270,7 @@ class Compiled:
             else:
                 dynamic.append(name)
                 parts.append((name, _spec(value, leaves)))
-        key = (tuple(parts), _flood.flood_route, tuple(sorted(_step.ablate)), _flood.fixed_only_prefix,
-               tuple(part() for part in _KEY_PARTS))
+        key = (tuple(parts), tuple(part() for part in _KEY_PARTS))
         return _Call(bound, tuple(dynamic), leaves, key)
 
     def __call__(self, *args, **kwargs):
@@ -313,5 +288,6 @@ class Compiled:
 def compiled(fn: Callable, static_argnames=(), when: Callable[[dict], bool] | None = None) -> Compiled:
     """``fn`` captured into a CUDA graph per key and replayed (``jax.jit``'s
     counterpart; the module docstring says what a graph may hold).  ``when``
-    keeps the calls it refuses eager (a path that syncs, ``capturable``)."""
+    keeps the calls it refuses eager (a path that syncs,
+    ``core.flood.capturable``)."""
     return Compiled(fn, static_argnames, when)

@@ -568,14 +568,14 @@ def make_net_genmove(checkpoint: str, board_size: int, channels: int,
     and PUCT movers through ``run_gumbel_mcts``, ``run_mcts`` and
     ``compact_subtree`` (their shapes are the same at every move, the PUCT
     mover's empty tree included), the greedy one its forward and masked
-    argmax.  Boards over the route's kernels' size (22x22 on the bundle
-    route, 181x181 on the minmax route) run eagerly."""
+    argmax.  Boards over 181x181 run eagerly (``core.flood.capturable``)."""
     import torch
 
     from gymgo_tpu_torch.convert import load_aznet_checkpoint
     from gymgo_tpu_torch.core import actions as _actions
     from gymgo_tpu_torch.core import transform as _transform
-    from gymgo_tpu_torch.utils.graphs import capturable_states, compiled
+    from gymgo_tpu_torch.core.flood import capturable_states
+    from gymgo_tpu_torch.utils.graphs import compiled
 
     if search not in ("gumbel", "puct"):
         raise ValueError(f"unknown search {search!r}")

@@ -50,17 +50,12 @@ _DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 
 def steady_boards(dev, n=19, batch=12288):
     """(mover, opp) planes where ``chip_smoke.py``'s main path ends: 768
-    warm-up steps and 5 windows of 64 from empty boards; on the minmax route
-    where the bundle word cannot hold the board."""
+    warm-up steps and 5 windows of 64 from empty boards (boards over 22x22
+    take the minmax route, ``core.flood.bundle_fits``)."""
     cfg = EnvConfig(board_size=n, batch_size=batch, reward_method=HEURISTIC, auto_reset=True)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
-    route = tflood.flood_route if n * n <= tflood.MAX_BUNDLE_CELLS else "unrolled"
-    previous = tflood.set_flood_route(route)
-    try:
-        states = rollout(gen, batch_init_state(batch, n, device=dev), 768, cfg).final_states
-        _, runs, _ = chip_smoke.timed_windows(rollout, gen, states, cfg, 64, 5)
-    finally:
-        tflood.set_flood_route(previous)
+    states = rollout(gen, batch_init_state(batch, n, device=dev), 768, cfg).final_states
+    _, runs, _ = chip_smoke.timed_windows(rollout, gen, states, cfg, 64, 5)
     return chip_smoke.boards_of(runs[-1].final_states)
 
 

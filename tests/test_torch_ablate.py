@@ -1,13 +1,15 @@
 """The step's cost-decomposition switches against the JAX package's, bit for bit.
 
 ``GYMGO_ABLATE`` (``gymgo_tpu_torch.core.step.set_ablate`` against
-``gymgo_tpu.core.step._ABLATE``) and ``GYMGO_BITPACK_FIXED_ONLY`` with
-``GYMGO_BITPACK_PREFIX`` (``core.flood.set_bitpack_fixed_only`` against
-``gymgo_tpu.core.flood._BITPACK_FIXED_ONLY`` / ``_BITPACK_PREFIX``).  An ablated
-step is wrong by design, but deterministic: the port's must equal JAX's on
-every field, through ``step_states`` and ``step_planes`` with and without the
-carried planes.  The JAX package reads its switches while it traces, so its
-globals are patched with ``monkeypatch`` between two ``jax.clear_caches()``.
+``gymgo_tpu.core.step._ABLATE``).  An ablated step is wrong by design, but
+deterministic: the port's must equal JAX's on every field, through
+``step_states`` and ``step_planes`` with and without the carried planes.  And
+the bundle flood's truncated schedule (``bundle_substep`` rounds from
+``bundle_seed_and_gates``, which ``scripts.measure_convergence`` runs) against
+JAX's flood under its ``GYMGO_BITPACK_FIXED_ONLY`` with ``GYMGO_BITPACK_PREFIX``
+(``gymgo_tpu.core.flood._BITPACK_FIXED_ONLY`` / ``_BITPACK_PREFIX``).  The JAX
+package reads its switches while it traces, so its globals are patched with
+``monkeypatch`` between two ``jax.clear_caches()``.
 """
 
 import contextlib
@@ -153,7 +155,7 @@ def test_ko_ablation_takes_the_ko_point_out(monkeypatch):
 
 
 @pytest.mark.parametrize("tokens", CASES + [()], ids=lambda t: "+".join(t) or "whole")
-def test_minmax_route_equals_bundle_route_under_ablation(tokens):
+def test_minmax_route_equals_bundle_route_under_ablation(tokens, monkeypatch):
     n, b, steps = 9, 16, 16
     rng = np.random.default_rng(3)
     states = _start_states(n, b)
@@ -164,15 +166,14 @@ def test_minmax_route_equals_bundle_route_under_ablation(tokens):
         for _ in range(steps):
             acts = torch.from_numpy(_random_actions(rng, states))
             outs = {}
-            for route in ("bitpack", "unrolled"):
-                before = tflood.set_flood_route(route)
-                try:
+            for route in ("bundle", "minmax"):
+                with monkeypatch.context() as m:
+                    if route == "minmax":  # the size rule sends these boards to the minmax route
+                        m.setattr(tflood, "bundle_fits", lambda _n: False)
                     outs[route] = (tstep.step_states(torch.from_numpy(states.copy()), acts),
                                    tstep.step_planes(tps, acts))
-                finally:
-                    tflood.set_flood_route(before)
-            (sb, ib), (pb, pib) = outs["bitpack"]
-            (sm, im), (pm, pim) = outs["unrolled"]
+            (sb, ib), (pb, pib) = outs["bundle"]
+            (sm, im), (pm, pim) = outs["minmax"]
             assert torch.equal(sb, sm)
             for x, y in zip((*ib, *pb, *pib), (*im, *pm, *pim)):
                 assert torch.equal(x, y)
@@ -210,11 +211,30 @@ def test_sampler_ablation_rollout_matches_jax(monkeypatch):
         np.testing.assert_array_equal(np.asarray(getattr(jr, field)), getattr(tr, field).numpy(), err_msg=field)
 
 
-def _fixed_only(monkeypatch, prefix):
+def _jax_fixed_only(monkeypatch, prefix):
     jax.clear_caches()
     monkeypatch.setattr(jflood, "_BITPACK_FIXED_ONLY", True)
     monkeypatch.setattr(jflood, "_BITPACK_PREFIX", prefix)
-    return tflood.set_bitpack_fixed_only(prefix)
+
+
+def _rounds(a, b, prefix, reverse=True):
+    """The bundle word after ``prefix // 2`` rounds from its seed, each a
+    forward substep and then a reverse one (with ``reverse``; else a second
+    forward one), converged or not."""
+    x, gates = tflood.bundle_seed_and_gates(a, b)
+    for _ in range(prefix // 2):
+        x = tflood.bundle_substep(tflood.bundle_substep(x, gates), gates, reverse=reverse)
+    return x
+
+
+def _jax_truncated(a, b, n, prefix, monkeypatch):
+    """JAX's ``flood_bundle_bitpack`` under its truncation switch."""
+    _jax_fixed_only(monkeypatch, prefix)
+    try:
+        return jax.jit(jflood.flood_bundle_bitpack, static_argnums=2)(jnp.asarray(a), jnp.asarray(b), n)
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
 
 
 @pytest.mark.parametrize("prefix", [0, 2, 16])
@@ -222,15 +242,10 @@ def _fixed_only(monkeypatch, prefix):
 def test_fixed_only_flood_matches_jax(prefix, n, monkeypatch):
     states = states_on_boards(n, 5)
     a, b = states[:, 0] != 0, states[:, 1] != 0
-    whole = tflood.flood_bundle(torch.from_numpy(a), torch.from_numpy(b))
-    previous = _fixed_only(monkeypatch, prefix)
-    try:
-        jout = jax.jit(jflood.flood_bundle_bitpack, static_argnums=2)(jnp.asarray(a), jnp.asarray(b), n)
-        tout = tflood.flood_bundle(torch.from_numpy(a), torch.from_numpy(b))
-    finally:
-        tflood.set_bitpack_fixed_only(previous)
-        monkeypatch.undo()
-        jax.clear_caches()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    whole = tflood.flood_bundle(ta, tb)
+    jout = _jax_truncated(a, b, n, prefix, monkeypatch)
+    tout = tflood.unpack_bundle(_rounds(ta, tb, prefix), ta, tb)
     for j, t in zip(jout, tout):
         assert np.asarray(j).dtype == t.numpy().dtype
         np.testing.assert_array_equal(np.asarray(j), t.numpy())
@@ -238,58 +253,17 @@ def test_fixed_only_flood_matches_jax(prefix, n, monkeypatch):
     assert truncated == (prefix < 16)  # 8 rounds converge every one of these boards
 
 
-def test_fixed_only_step_matches_jax(monkeypatch):
-    n, b, steps, prefix = 9, 16, 12, 2
-    rng = np.random.default_rng(4)
-    states = _start_states(n, b)
-    previous = _fixed_only(monkeypatch, prefix)
-    try:
-        # the truncated flood seeds the carried atari plane in both packages
-        jps = jax.jit(lambda s: _seed_jax(jstep.planes_from_states(s)))(jnp.asarray(states))
-        tps = tstep.planes_from_states(torch.from_numpy(states.copy()))
-        tps = tps._replace(atari=tstep.init_atari(tps), ko_surr=tstep.init_ko_surr(tps))
-        _assert_tuple_equal(jps, tps)
-        for step in range(steps):
-            acts = _random_actions(rng, states)
-            if step == 0:
-                jax_steps = _compiled_step_pair(states, jps, acts)
-            (jnew, jinfo), (jps, jpinfo) = jax_steps(jnp.asarray(states), jps, jnp.asarray(acts))
-            tnew, tinfo = tstep.step_states(torch.from_numpy(states.copy()), torch.from_numpy(acts))
-            np.testing.assert_array_equal(np.asarray(jnew), tnew.numpy())
-            _assert_tuple_equal(jinfo, tinfo)
-            tps, tpinfo = tstep.step_planes(tps, torch.from_numpy(acts))
-            _assert_tuple_equal(jps, tps)
-            _assert_tuple_equal(jpinfo, tpinfo)
-            states = np.asarray(jnew)
-    finally:
-        tflood.set_bitpack_fixed_only(previous)
-        monkeypatch.undo()
-        jax.clear_caches()
-
-
-def test_set_bitpack_fixed_only_restores_and_checks_its_prefix():
-    start = tflood.fixed_only_prefix
-    assert tflood.set_bitpack_fixed_only(4) == start
-    assert tflood.set_bitpack_fixed_only(None) == 4
-    for bad in (-2, 2.0, True):
-        with pytest.raises(ValueError):
-            tflood.set_bitpack_fixed_only(bad)
-    assert tflood.fixed_only_prefix is None
-    tflood.set_bitpack_fixed_only(start)
-
-
-def test_fixed_only_round_is_forward_then_reverse():
-    """A truncated word equals JAX's only if the directions come in JAX's
-    order: one round is a forward substep, then a reverse one, and the order
-    shows in the word."""
+def test_fixed_only_round_is_forward_then_reverse(monkeypatch):
+    """The truncated schedule equals JAX's only if the directions come in
+    JAX's order: one round is a forward substep, then a reverse one, and the
+    order shows in the word and in JAX's outputs."""
     states = states_on_boards(9, 7)
-    a, b = torch.from_numpy(states[:, 0] != 0), torch.from_numpy(states[:, 1] != 0)
-    seed, gates = tflood.bundle_seed_and_gates(a, b)
-    fwd = tflood.bundle_substep(seed, gates)
-    previous = tflood.set_bitpack_fixed_only(2)
-    try:
-        word = tflood.bundle_flood_plain(a, b)
-    finally:
-        tflood.set_bitpack_fixed_only(previous)
-    assert torch.equal(word, tflood.bundle_substep(fwd, gates, reverse=True))
-    assert not torch.equal(word, tflood.bundle_substep(fwd, gates))
+    a, b = states[:, 0] != 0, states[:, 1] != 0
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    word, forward_twice = _rounds(ta, tb, 2), _rounds(ta, tb, 2, reverse=False)
+    assert not torch.equal(word, forward_twice)
+    jout = _jax_truncated(a, b, 9, 2, monkeypatch)
+    for j, t in zip(jout, tflood.unpack_bundle(word, ta, tb)):
+        np.testing.assert_array_equal(np.asarray(j), t.numpy())
+    assert any(not np.array_equal(np.asarray(j), t.numpy())
+               for j, t in zip(jout, tflood.unpack_bundle(forward_twice, ta, tb)))

@@ -121,12 +121,8 @@ def test_minmax_route_rollout_over_32x32_matches_jax_unrolled(n, b, steps, tmp_p
     assert (ref["rewards"] != 0).any(), "the heuristic reward reads the claimed areas every step"
     cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
     acts = iter(torch.from_numpy(ref["actions"]))
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        t = tenv.rollout(torch.Generator().manual_seed(0), torch.zeros((b, 6, n, n), dtype=torch.int8),
-                         steps, cfg, policy_fn=lambda _g, _s: next(acts))
-    finally:
-        tflood.set_flood_route(previous)
+    t = tenv.rollout(torch.Generator().manual_seed(0), torch.zeros((b, 6, n, n), dtype=torch.int8),
+                     steps, cfg, policy_fn=lambda _g, _s: next(acts))
     for field in ("actions", "rewards", "dones", "final_states"):
         np.testing.assert_array_equal(ref[field], getattr(t, field).numpy(), err_msg=field)
     assert not t.invalid.any()

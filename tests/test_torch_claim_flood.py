@@ -31,7 +31,6 @@ from gymgo_tpu_torch.core import flood as tflood
 from gymgo_tpu_torch.core import score as tscore
 from gymgo_tpu_torch.env import batch_env as tenv
 from gymgo_tpu_torch.ops import claim_flood as tclaim
-from gymgo_tpu_torch.utils import graphs
 from test_torch_minmax import _JAX_ROLLOUT
 from torch_boards import adversarial_boards, component_boards, random_boards, states_on_boards
 
@@ -150,28 +149,19 @@ def test_25x25_minmax_route_rollout_matches_jax_unrolled(tmp_path):
     assert (ref["rewards"] != 0).any(), "the heuristic reward reads the claimed areas every step"
     cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
     acts = iter(torch.from_numpy(ref["actions"]))
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        t = tenv.rollout(torch.Generator().manual_seed(0), torch.zeros((b, 6, n, n), dtype=torch.int8),
-                         steps, cfg, policy_fn=lambda _g, _s: next(acts))
-    finally:
-        tflood.set_flood_route(previous)
+    t = tenv.rollout(torch.Generator().manual_seed(0), torch.zeros((b, 6, n, n), dtype=torch.int8),
+                     steps, cfg, policy_fn=lambda _g, _s: next(acts))
     for field in ("actions", "rewards", "dones", "final_states"):
         np.testing.assert_array_equal(ref[field], getattr(t, field).numpy(), err_msg=field)
     assert not t.invalid.any()
 
 
-@pytest.mark.parametrize("route,n,want", [
-    ("bitpack", 9, True), ("bitpack", 19, True), ("bitpack", 22, True), ("bitpack", 23, False),
-    ("pallas", 22, True), ("pallas", 25, False),
-    ("unrolled", 1, True), ("unrolled", 9, True), ("unrolled", 19, True), ("unrolled", 23, True),
-    ("unrolled", 25, True), ("unrolled", 32, True), ("unrolled", 33, True), ("unrolled", 64, True),
-    ("unrolled", 181, True), ("unrolled", 182, False), ("simple", 32, True),
+@pytest.mark.parametrize("n,want", [
+    (1, True), (9, True), (19, True), (22, True), (23, True), (25, True), (32, True), (33, True), (64, True),
+    (181, True), (182, False),
 ])
-def test_capturable_follows_the_routes_kernels(route, n, want):
-    previous = tflood.set_flood_route(route)
-    try:
-        assert graphs.capturable(n) is want
-        assert graphs.capturable_states({"states": torch.zeros((1, 6, n, n), dtype=torch.int8)}) is want
-    finally:
-        tflood.set_flood_route(previous)
+def test_capturable_follows_the_routes_kernels(n, want):
+    """The card's kernels take every board up to 181x181: the bundle flood's up
+    to 22x22, the min/max and claim kernels' above."""
+    assert tflood.capturable(n) is want
+    assert tflood.capturable_states({"states": torch.zeros((1, 6, n, n), dtype=torch.int8)}) is want

@@ -236,17 +236,13 @@ def recording(monkeypatch):
 def _switch(name):
     """A context-free change of one part of the key, undone by the returned
     function."""
-    if name == "route":
-        before = tflood.set_flood_route("unrolled")
-        return lambda: tflood.set_flood_route(before)
     if name == "ablate":
         before = tstep.set_ablate({"areas"})
         return lambda: tstep.set_ablate(before)
     return lambda: None
 
 
-@pytest.mark.parametrize("change", ["same", "generator", "shape", "dtype", "static", "structure", "route",
-                                    "ablate"])
+@pytest.mark.parametrize("change", ["same", "generator", "shape", "dtype", "static", "structure", "ablate"])
 def test_the_key_gives_a_new_graph_for_each_change_and_a_hit_otherwise(change, recording):
     fn = graphs.compiled(lambda g, x, steps, extra=None: None, static_argnames=("steps",))
     gen = torch.Generator()
@@ -304,13 +300,7 @@ def test_a_replay_copies_its_inputs_in_counts_the_captured_launches_and_returns_
 
 
 def test_capturable_and_the_envs_compiled_flags():
-    before = tflood.set_flood_route("bitpack")
-    try:
-        assert graphs.capturable(19) and graphs.capturable(22) and not graphs.capturable(23)
-        tflood.set_flood_route("unrolled")
-        assert all(graphs.capturable(n) for n in (9, 19, 25, 32, 33, 181)) and not graphs.capturable(182)
-    finally:
-        tflood.set_flood_route(before)
+    assert all(tflood.capturable(n) for n in (9, 19, 22, 23, 25, 32, 33, 181)) and not tflood.capturable(182)
     cfg = EnvConfig(board_size=9, batch_size=8, reward_method="heuristic", auto_reset=True)
     assert not tenv.BatchGoEnv(cfg, device="cpu").compiled
     sharded = ShardedGoEnv(cfg, make_mesh(devices=[torch.device("cpu")] * 2))

@@ -115,10 +115,10 @@ def test_minmax_kernel_matches_plain(n, cuda_device):
             assert torch.equal(kmn.cpu(), smn) and torch.equal(kmx.cpu(), smx)
 
 
-def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_device):
+def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_device, monkeypatch):
     cfg = EnvConfig(board_size=9, batch_size=96, reward_method="heuristic", auto_reset=True)
-    previous = tflood.set_flood_route("unrolled")
-    try:
+    with monkeypatch.context() as m:
+        m.setattr(tflood, "bundle_fits", lambda _n: False)  # the minmax route at this size
         g = torch.Generator(device=cuda_device).manual_seed(0)
         minmax, bundle = tminmax.MINMAX_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches
         claim = tclaim.CLAIM_FLOOD.launches
@@ -130,8 +130,6 @@ def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_de
         acts = iter(r.actions.cpu())
         rc = rollout(torch.Generator(), batch_init_state(96, 9, device="cpu"), 150, cfg,
                      policy_fn=lambda _g, _s: next(acts))
-    finally:
-        tflood.set_flood_route(previous)
     for field in ("final_states", "rewards", "dones"):
         assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
 
@@ -230,22 +228,18 @@ def test_64x64_compiled_window_equals_eager_without_a_host_sync(cuda_device):
     n, b, steps = 64, 64, 24
     cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
     env = BatchGoEnv(cfg, device=cuda_device)
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        assert env.compiled
-        start = env.rollout(torch.Generator(device=cuda_device).manual_seed(11), env.reset(), steps).final_states
-        gc, ge = (torch.Generator(device=cuda_device).manual_seed(12) for _ in range(2))
-        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
-        with _no_host_sync():
-            got = env.rollout(gc, start, steps)
-        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
-        assert tuple(x - y for x, y in zip(counted, launches)) == (steps + 1, steps, 0)
-        with graphs.eager():
-            want = env.rollout(ge, start, steps)
-        (graph,) = env._rollout.graphs.values()
-        assert graph.replays == 1
-    finally:
-        tflood.set_flood_route(previous)
+    assert env.compiled
+    start = env.rollout(torch.Generator(device=cuda_device).manual_seed(11), env.reset(), steps).final_states
+    gc, ge = (torch.Generator(device=cuda_device).manual_seed(12) for _ in range(2))
+    launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+    with _no_host_sync():
+        got = env.rollout(gc, start, steps)
+    counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+    assert tuple(x - y for x, y in zip(counted, launches)) == (steps + 1, steps, 0)
+    with graphs.eager():
+        want = env.rollout(ge, start, steps)
+    (graph,) = env._rollout.graphs.values()
+    assert graph.replays == 1
     for field in _FIELDS:
         assert torch.equal(getattr(got, field), getattr(want, field)), field
     assert torch.equal(gc.get_state(), ge.get_state())
@@ -258,21 +252,16 @@ def test_181x181_compiled_window_replays_on_cpu(cuda_device):
     n, b, steps = 181, 2, 12
     cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
     env = BatchGoEnv(cfg, device=cuda_device)
-    assert not env.compiled  # the bundle word holds no 181x181 board
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        assert env.compiled
-        g = torch.Generator(device=cuda_device).manual_seed(13)
-        first = env.rollout(g, env.reset(), steps)  # runs eagerly and captures
-        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
-        with _no_host_sync():
-            r = env.rollout(g, first.final_states, steps)
-        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
-        assert (counted[0] - launches[0], counted[1] - launches[1]) == (steps + 1, steps)
-        acts = iter(r.actions.cpu())
-        rc = rollout(torch.Generator(), first.final_states.cpu(), steps, cfg, policy_fn=lambda _g, _s: next(acts))
-    finally:
-        tflood.set_flood_route(previous)
+    assert env.compiled  # the min/max and claim kernels take 181x181 boards
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    first = env.rollout(g, env.reset(), steps)  # runs eagerly and captures
+    launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+    with _no_host_sync():
+        r = env.rollout(g, first.final_states, steps)
+    counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+    assert (counted[0] - launches[0], counted[1] - launches[1]) == (steps + 1, steps)
+    acts = iter(r.actions.cpu())
+    rc = rollout(torch.Generator(), first.final_states.cpu(), steps, cfg, policy_fn=lambda _g, _s: next(acts))
     assert not r.invalid.any()
     for field in ("final_states", "rewards", "dones"):
         assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
@@ -281,23 +270,19 @@ def test_181x181_compiled_window_replays_on_cpu(cuda_device):
 def test_go_env_over_32x32_on_the_card_matches_cpu(cuda_device):
     from gymgo_tpu_torch.env import GoEnv
 
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        envs = [GoEnv(37, reward_method="heuristic", backend="torch", device=cuda_device),
-                GoEnv(37, reward_method="heuristic", backend="torch", device="cpu")]
-        rng = np.random.RandomState(1)
-        launches = tminmax.MINMAX_FLOOD.launches
-        for t in range(120):
-            valid = np.flatnonzero(envs[0].valid_moves())
-            a = int(rng.choice(valid))
-            (obs, reward, done, info), (o, r, d, i) = [e.step(a) for e in envs]
-            assert np.array_equal(o, obs) and r == reward and d == done
-            assert np.array_equal(i["invalid_moves"], info["invalid_moves"])
-            if done:
-                break
-        assert tminmax.MINMAX_FLOOD.launches >= launches + 2 * (t + 1)  # each step classifies twice
-    finally:
-        tflood.set_flood_route(previous)
+    envs = [GoEnv(37, reward_method="heuristic", backend="torch", device=cuda_device),
+            GoEnv(37, reward_method="heuristic", backend="torch", device="cpu")]
+    rng = np.random.RandomState(1)
+    launches = tminmax.MINMAX_FLOOD.launches
+    for t in range(120):
+        valid = np.flatnonzero(envs[0].valid_moves())
+        a = int(rng.choice(valid))
+        (obs, reward, done, info), (o, r, d, i) = [e.step(a) for e in envs]
+        assert np.array_equal(o, obs) and r == reward and d == done
+        assert np.array_equal(i["invalid_moves"], info["invalid_moves"])
+        if done:
+            break
+    assert tminmax.MINMAX_FLOOD.launches >= launches + 2 * (t + 1)  # each step classifies twice
 
 
 @contextlib.contextmanager
@@ -340,7 +325,7 @@ def test_stateless_step_matches_cpu_without_a_host_sync(n, cuda_device):
 
 
 @pytest.mark.parametrize("n", [5, 9, 19, 22])
-def test_areas_match_cpu_without_a_host_sync(n, cuda_device):
+def test_areas_match_cpu_without_a_host_sync(n, cuda_device, monkeypatch):
     states = torch.from_numpy(states_on_boards(n, 6))
     on_card = states.to(cuda_device)
     tscore.areas(on_card)  # build the kernel outside the sync check
@@ -359,13 +344,10 @@ def test_areas_match_cpu_without_a_host_sync(n, cuda_device):
     black_area, white_area = tscore.areas(big)
     assert tbundle.BUNDLE_FLOOD.launches == launches + 2 and tclaim.CLAIM_FLOOD.launches == claim + 1
     assert black_area.tolist() == [625, 0] and white_area.tolist() == [0, 0]
-    # the score is the same function on the minmax route
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        for got, want in zip(tscore.areas(on_card), tscore.areas(states)):
-            assert torch.equal(got.cpu(), want)
-    finally:
-        tflood.set_flood_route(previous)
+    # the score is the same function by the claim kernel
+    monkeypatch.setattr(tflood, "bundle_fits", lambda _n: False)
+    for got, want in zip(tscore.areas(on_card), tscore.areas(states)):
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("n", [23, 25, 32])
@@ -702,26 +684,6 @@ def test_ablated_step_on_the_card_matches_cpu(tokens, cuda_device):
         assert torch.equal(getattr(got_info, name).cpu(), getattr(want_info, name)), name
 
 
-def test_fixed_only_raises_on_cuda_tensors(cuda_device):
-    """The kernel has no substeps to truncate: under GYMGO_BITPACK_FIXED_ONLY
-    the bundle flood refuses CUDA tensors, and so does every step over it."""
-    a, b = _boards_on(cuda_device, 9, 5)
-    states = batch_init_state(4, 9, device=cuda_device)
-    previous = tflood.set_bitpack_fixed_only(2)
-    try:
-        launches = tbundle.BUNDLE_FLOOD.launches
-        for call in (lambda: tflood.flood_bundle(a, b), lambda: tbundle.bundle_flood(a, b),
-                     lambda: tstep.step_states(states, torch.zeros(4, dtype=torch.int32, device=cuda_device))):
-            with pytest.raises(ValueError, match="FIXED_ONLY"):
-                call()
-        assert tbundle.BUNDLE_FLOOD.launches == launches
-        truncated = tflood.flood_bundle(a.cpu(), b.cpu())  # the CPU's plain flood takes the switch
-    finally:
-        tflood.set_bitpack_fixed_only(previous)
-    whole = tflood.flood_bundle(a, b)
-    assert any(not torch.equal(x.cpu(), y) for x, y in zip(whole, truncated))
-
-
 def test_measure_convergence_kernel_word_equals_the_counted_fixpoint(cuda_device, capsys):
     from gymgo_tpu_torch.scripts import measure_convergence
 
@@ -824,7 +786,7 @@ def test_replayed_windows_make_no_host_sync(cuda_device):
     assert not r.invalid.any()
 
 
-def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device):
+def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device, monkeypatch):
     # the minmax route's compiled window equals its eager form (graphs.eager)
     # over the first call and two replays, and the bundle route's window
     from gymgo_tpu_torch.env.batch_env import BatchGoEnv
@@ -832,8 +794,8 @@ def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device):
     cfg = EnvConfig(board_size=9, batch_size=64, reward_method="heuristic", auto_reset=True)
     env = BatchGoEnv(cfg, device=cuda_device)
     states = _midgame(cuda_device, 9, 64)
-    previous = tflood.set_flood_route("unrolled")
-    try:
+    with monkeypatch.context() as m:
+        m.setattr(tflood, "bundle_fits", lambda _n: False)  # the minmax route at this size
         assert env.compiled
         for i in range(3):
             launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
@@ -846,24 +808,23 @@ def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device):
                 assert torch.equal(getattr(got, field), getattr(want, field)), field
         (graph,) = env._rollout.graphs.values()
         assert graph.replays == 2
-    finally:
-        tflood.set_flood_route(previous)
-    assert env.compiled
-    bundle = env.rollout(torch.Generator(device=cuda_device).manual_seed(8), states, 20)
-    assert len(env._rollout.graphs) == 2  # the route is part of the key
+    # the board size picks the route, so the key need not: a fresh env takes the bundle flood
+    fresh = BatchGoEnv(cfg, device=cuda_device)
+    assert fresh.compiled
+    bundle = fresh.rollout(torch.Generator(device=cuda_device).manual_seed(8), states, 20)
     for field in _FIELDS:
         assert torch.equal(getattr(got, field), getattr(bundle, field)), field
 
 
-def test_minmax_route_replays_windows_and_steps_without_a_host_sync(cuda_device):
+def test_minmax_route_replays_windows_and_steps_without_a_host_sync(cuda_device, monkeypatch):
     from gymgo_tpu_torch.env.batch_env import BatchGoEnv, batch_step
 
     cfg = EnvConfig(board_size=19, batch_size=256, reward_method="heuristic", auto_reset=True)
     env = BatchGoEnv(cfg, device=cuda_device)
     states = _midgame(cuda_device, 19, 256)
     g = torch.Generator(device=cuda_device).manual_seed(9)
-    previous = tflood.set_flood_route("unrolled")
-    try:
+    with monkeypatch.context() as m:
+        m.setattr(tflood, "bundle_fits", lambda _n: False)  # the minmax route at this size
         first = env.rollout(g, states, 16)  # runs eagerly and captures
         actions = env.uniform_random_actions(g, first.final_states)
         env.step(first.final_states, actions)
@@ -876,8 +837,6 @@ def test_minmax_route_replays_windows_and_steps_without_a_host_sync(cuda_device)
         # stateless step: two classifications (before and after the move) and one claim flood
         assert tuple(x - y for x, y in zip(counted, launches)) == (16 + 1 + 2, 16 + 1, 0)
         want_s, want_r = batch_step(r.final_states, actions, cfg)
-    finally:
-        tflood.set_flood_route(previous)
     assert not r.invalid.any()
     assert torch.equal(got_s, want_s) and all(torch.equal(x, y) for x, y in zip(got_r, want_r))
 
@@ -888,23 +847,16 @@ def test_25x25_compiled_rollout_on_the_minmax_route_replays_on_cpu(cuda_device):
     n, b, steps = 25, 64, 40
     cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
     env = BatchGoEnv(cfg, device=cuda_device)
-    assert not env.compiled  # the bundle word holds no 25x25 board
-    with pytest.raises(ValueError, match="511"):
-        env.rollout(torch.Generator(device=cuda_device).manual_seed(10), env.reset(), 2)
-    previous = tflood.set_flood_route("unrolled")
-    try:
-        assert env.compiled
-        g = torch.Generator(device=cuda_device).manual_seed(10)
-        first = env.rollout(g, env.reset(), steps)  # runs eagerly and captures
-        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
-        with _no_host_sync():
-            r = env.rollout(g, first.final_states, steps)
-        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
-        assert (counted[0] - launches[0], counted[1] - launches[1]) == (steps + 1, steps)
-        acts = iter(r.actions.cpu())
-        rc = rollout(torch.Generator(), first.final_states.cpu(), steps, cfg, policy_fn=lambda _g, _s: next(acts))
-    finally:
-        tflood.set_flood_route(previous)
+    assert env.compiled  # the size rule sends 25x25 boards to the minmax route
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    first = env.rollout(g, env.reset(), steps)  # runs eagerly and captures
+    launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+    with _no_host_sync():
+        r = env.rollout(g, first.final_states, steps)
+    counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches)
+    assert (counted[0] - launches[0], counted[1] - launches[1]) == (steps + 1, steps)
+    acts = iter(r.actions.cpu())
+    rc = rollout(torch.Generator(), first.final_states.cpu(), steps, cfg, policy_fn=lambda _g, _s: next(acts))
     assert not r.invalid.any() and (r.rewards != 0).any()
     for field in ("final_states", "rewards", "dones"):
         assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field

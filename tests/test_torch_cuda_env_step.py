@@ -246,7 +246,8 @@ def test_the_route_keeps_the_plain_step_on_the_card(case, monkeypatch, cuda_devi
     for lib in env_step.KERNELS:
         monkeypatch.setattr(lib, "launch", refuse)
     n = 25 if case == "25x25" else 9
-    previous_route = tflood.set_flood_route("unrolled" if case != "ablate" else tflood.flood_route)
+    if case == "minmax":  # the size rule sends these boards to the minmax route
+        monkeypatch.setattr(tflood, "bundle_fits", lambda _n: False)
     previous_ablate = tstep.set_ablate({"ko"} if case == "ablate" else ())
     try:
         states = batch_init_state(32, n, device=cuda_device)
@@ -254,5 +255,4 @@ def test_the_route_keeps_the_plain_step_on_the_card(case, monkeypatch, cuda_devi
         r = rollout(torch.Generator(device=cuda_device).manual_seed(3), states, 12, cfg)
         tstep.step_states(r.final_states, torch.zeros(32, dtype=torch.int32, device=cuda_device))
     finally:
-        tflood.set_flood_route(previous_route)
         tstep.set_ablate(previous_ablate)

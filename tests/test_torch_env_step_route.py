@@ -1,6 +1,6 @@
 """When the step runs as the hand kernels of ``ops.env_step`` (on the card)
-and when it keeps the op-by-op PyTorch code: the CPU, the minmax route, boards
-over 22x22 and every ``GYMGO_ABLATE`` token take the plain step, which no
+and when it keeps the op-by-op PyTorch code: the CPU, the minmax route (boards
+over 22x22) and every ``GYMGO_ABLATE`` token take the plain step, which no
 launcher is asked for; the wrappers refuse what the kernels do not take
 before they reach a launcher.  The kernels themselves run on the card only
 (``tests/test_torch_cuda_env_step.py``)."""
@@ -36,10 +36,9 @@ def no_launch(monkeypatch):
 
 
 @pytest.fixture
-def route():
-    previous = tflood.flood_route
-    yield tflood.set_flood_route
-    tflood.set_flood_route(previous)
+def minmax_route(monkeypatch):
+    """The size rule sends every board to the minmax route."""
+    monkeypatch.setattr(tflood, "bundle_fits", lambda n: False)
 
 
 @pytest.fixture
@@ -66,20 +65,18 @@ def test_cpu_tensors_take_the_plain_step(no_launch):
     assert ps.done.shape == (4,)
 
 
-@pytest.mark.parametrize("name", ["unrolled", "minmax"])
-def test_the_minmax_route_takes_the_plain_step(name, route, no_launch):
-    route(name)
-    assert not tstep.fused_step(_boards(19))
-    cfg = EnvConfig(board_size=7, batch_size=3, auto_reset=True)
-    rollout(torch.Generator().manual_seed(1), batch_init_state(3, 7, device="cpu"), 6, cfg)
+@pytest.mark.parametrize("n", [7, 9])
+def test_the_minmax_route_takes_the_plain_step(n, minmax_route, no_launch):
+    assert not tstep.fused_step(_boards(n))
+    cfg = EnvConfig(board_size=n, batch_size=3, auto_reset=True)
+    rollout(torch.Generator().manual_seed(1), batch_init_state(3, n, device="cpu"), 6, cfg)
 
 
 @pytest.mark.parametrize("n", [23, 25, 64])
-def test_boards_over_the_bundle_word_take_the_plain_step(n, route, no_launch):
-    assert n * n > tflood.MAX_BUNDLE_CELLS
+def test_boards_over_the_bundle_word_take_the_plain_step(n, no_launch):
+    assert n * n > tflood.MAX_BUNDLE_CELLS and not tflood.bundle_fits(n)
     assert not tstep.fused_step(_boards(n))
     if n == 23:  # the plain step floods boards this size on the minmax route
-        route("unrolled")
         tstep.step_states(batch_init_state(2, n, device="cpu"), torch.tensor([0, n * n], dtype=torch.int32))
 
 

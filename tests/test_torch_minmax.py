@@ -2,8 +2,9 @@
 
 The min/max liberty flood (plain version and wrapper) against the Pallas
 kernel in interpret mode; its primitives, the classification and the route's
-bundle outputs against the JAX functions; and a rollout of the port on the
-minmax route against a JAX rollout run with ``GYMGO_FLOOD=unrolled``.  Inputs
+bundle outputs against the JAX functions; the size rule that picks the route;
+and a rollout of the port on the minmax route against a JAX rollout run with
+``GYMGO_FLOOD=unrolled``.  Inputs
 are made with numpy from a seed; integer and bool outputs must agree bit for
 bit.  The kernel's own tests, which need a card, are in test_torch_cuda.py.
 """
@@ -59,10 +60,9 @@ def _jax_seeds(a, b, n):
 
 
 @pytest.fixture
-def minmax_route():
-    previous = tflood.set_flood_route("unrolled")
-    yield
-    tflood.set_flood_route(previous)
+def minmax_route(monkeypatch):
+    """The size rule sends every board to the minmax route."""
+    monkeypatch.setattr(tflood, "bundle_fits", lambda n: False)
 
 
 @pytest.mark.parametrize("n", [5, 9, 19])
@@ -155,18 +155,29 @@ def test_minmax_flood_cuda_rejects_cpu_tensors():
         tminmax.minmax_flood_cuda(a, a)
 
 
-@pytest.mark.parametrize("name", ["bitpack", "gatepack", "pallas", "unrolled", "simple", "split", "sweep", "hybrid"])
-def test_set_flood_route_follows_the_jax_mapping(name):
-    previous = tflood.set_flood_route(name)
-    try:
-        bundle = name in ("bitpack", "gatepack", "pallas")
-        assert tflood.flood_route == name
-        assert tflood.flood_bundle_best is (tflood.flood_bundle if bundle else tflood.flood_bundle_from_parts)
-        assert tflood.liberty_classification_best is (
-            tflood.liberty_classes_bitpack if bundle else tflood.liberty_classes_from_minmax)
-        assert tflood.flood_or_best is tflood.flood_or
-    finally:
-        assert tflood.set_flood_route(previous) == name
+@pytest.mark.parametrize("n", [5, 9, 19, 22, 23, 25, 32, 33])
+def test_the_board_size_picks_the_flood(n, monkeypatch):
+    """Boards up to 22x22 (N*N <= 511) take the bundle flood, larger ones the
+    minmax route, with the same five outputs; the card's kernels take both."""
+    bundle = n <= 22
+    assert tflood.bundle_fits(n) is bundle and tflood.capturable(n)
+    ran = []
+    for name in ("flood_bundle", "flood_bundle_from_parts", "liberty_classes_bitpack",
+                 "liberty_classes_from_minmax"):
+        fn = getattr(tflood, name)
+        monkeypatch.setattr(tflood, name, lambda *a, _fn=fn, _name=name: ran.append(_name) or _fn(*a))
+    a, b = (_t(x) for x in random_boards(np.random.default_rng(70 + n), 2, n))
+    got = tflood.flood_bundle_best(a, b)
+    assert ran[0] == ("flood_bundle" if bundle else "flood_bundle_from_parts")
+    ran.clear()
+    classes = tflood.liberty_classification_best(a, b)
+    assert ran[0] == ("liberty_classes_bitpack" if bundle else "liberty_classes_from_minmax")
+    for x, y in zip(classes, (got[0], got[1], got[4])):
+        assert torch.equal(x, y)
+    if bundle:  # the minmax route gives the same bits where both run
+        for x, y in zip(got, tflood.flood_bundle_from_parts(a, b)):
+            assert torch.equal(x, y)
+    assert tflood.flood_or_best is tflood.flood_or
 
 
 _JAX_ROLLOUT = """
@@ -205,7 +216,7 @@ def test_minmax_route_rollout_matches_jax_unrolled(tmp_path, minmax_route):
     assert not t.invalid.any()
 
 
-def test_stateless_step_planes_agree_between_routes():
+def test_stateless_step_planes_agree_between_routes(monkeypatch):
     n, b = 9, 48
     cfg = EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
     states = tenv.rollout(torch.Generator().manual_seed(1), torch.zeros((b, 6, n, n), dtype=torch.int8),
@@ -215,13 +226,12 @@ def test_stateless_step_planes_agree_between_routes():
     for _ in range(3):
         acts = torch.from_numpy(rng.integers(0, n * n + 1, b).astype(np.int32))
         outs = {}
-        for route in ("bitpack", "unrolled"):
-            previous = tflood.set_flood_route(route)
-            try:
+        for route in ("bundle", "minmax"):
+            with monkeypatch.context() as m:
+                if route == "minmax":  # the size rule sends these boards to the minmax route
+                    m.setattr(tflood, "bundle_fits", lambda _n: False)
                 outs[route] = tstep.step_planes(ps, acts)
-            finally:
-                tflood.set_flood_route(previous)
-        (ps_a, info_a), (ps_b, info_b) = outs["bitpack"], outs["unrolled"]
+        (ps_a, info_a), (ps_b, info_b) = outs["bundle"], outs["minmax"]
         assert ps_a.atari is None and ps_b.atari is None
         for x, y in zip(tuple(ps_a) + tuple(info_a), tuple(ps_b) + tuple(info_b)):
             assert (x is None and y is None) or torch.equal(x, y)

@@ -54,12 +54,13 @@ def test_sharded_step_matches_jax_sharded_step():
         np.testing.assert_array_equal(r_port.done.numpy(), np.asarray(r_jax.done))
 
 
-@pytest.mark.parametrize("route", ["bitpack", "unrolled"])
-def test_sharded_rollout_equals_unsharded_and_replays_through_jax(route):
+@pytest.mark.parametrize("route", ["bundle", "minmax"])
+def test_sharded_rollout_equals_unsharded_and_replays_through_jax(route, monkeypatch):
     n, b, steps = 9, 32, 20
     cfg = tconfig.EnvConfig(board_size=n, batch_size=b, reward_method="heuristic", auto_reset=True)
-    previous = tflood.set_flood_route(route)
-    try:
+    with monkeypatch.context() as m:
+        if route == "minmax":  # the size rule sends these boards to the minmax route
+            m.setattr(tflood, "bundle_fits", lambda _n: False)
         start = torch.from_numpy(midgame_states(n, b, 100, 1))
         plain = rollout(torch.Generator().manual_seed(1), start, steps, cfg)
         env = ShardedGoEnv(cfg, make_mesh(devices=CPU8))
@@ -74,8 +75,6 @@ def test_sharded_rollout_equals_unsharded_and_replays_through_jax(route):
         assert torch.equal(again.final_states, again_sharded.final_states)
         assert torch.equal(env.uniform_random_actions(gen_sharded, again_sharded.final_states),
                            tactions.uniform_random_actions(gen_plain, again.final_states))
-    finally:
-        tflood.set_flood_route(previous)
     # finished games restarted in place, and others finished
     assert start[:, 4, 0, 0].any() and sharded.dones.any() and not sharded.invalid.any()
     # JAX's batch_step replays the port's actions

@@ -101,9 +101,9 @@ def test_step_states_and_step_planes_match_jax(n, b, opening, steps):
         assert totals["single_capture_blocked"] > 0, totals
 
 
-@pytest.mark.parametrize("route", ["bitpack", "unrolled"])
+@pytest.mark.parametrize("route", ["bundle", "minmax"])
 @pytest.mark.parametrize("n", [5, 9, 19])
-def test_stateless_step_on_hand_made_boards_matches_jax_by_flood_and_by_classes(n, route):
+def test_stateless_step_on_hand_made_boards_matches_jax_by_flood_and_by_classes(n, route, monkeypatch):
     """Boards no game reaches, where groups stand without a liberty: JAX's
     stateless step removes them with the move.  So does the port, by its
     capture flood (what CPU tensors take) and by the liberty classes of the
@@ -114,15 +114,13 @@ def test_stateless_step_on_hand_made_boards_matches_jax_by_flood_and_by_classes(
     acts = _random_actions(np.random.default_rng(n), states)
     js, ji = _jit_step_states(jnp.asarray(states), jnp.asarray(acts))
     js = np.asarray(js)
-    previous = tflood.set_flood_route(route)
-    try:
-        ts, ti = tstep.step_states(torch.from_numpy(states), torch.from_numpy(acts))
-        black, white = torch.from_numpy(states[:, 0] != 0), torch.from_numpy(states[:, 1] != 0)
-        wtm = torch.from_numpy(states[:, 2] != 0)
-        killed = tstep._killed_by_classes(
-            black, white, torch.where(wtm, black, white), torch.from_numpy(acts).long().clamp(0, m - 1))
-    finally:
-        tflood.set_flood_route(previous)
+    if route == "minmax":  # the size rule sends these boards to the minmax route
+        monkeypatch.setattr(tflood, "bundle_fits", lambda _n: False)
+    ts, ti = tstep.step_states(torch.from_numpy(states), torch.from_numpy(acts))
+    black, white = torch.from_numpy(states[:, 0] != 0), torch.from_numpy(states[:, 1] != 0)
+    wtm = torch.from_numpy(states[:, 2] != 0)
+    killed = tstep._killed_by_classes(
+        black, white, torch.where(wtm, black, white), torch.from_numpy(acts).long().clamp(0, m - 1))
     np.testing.assert_array_equal(js, ts.numpy())
     _assert_tuple_equal(ji, ti)
     moved = ~np.asarray(ji.invalid_action) & ~np.asarray(ji.was_done) & (acts != m)
