@@ -19,7 +19,8 @@ card.  Rates follow the host: compare the two only within one run.
 Prints exactly one JSON line on stdout (diagnostics go to stderr):
 ``bench.py``'s keys, ``value`` the best compiled window's rate as there,
 beside the rate of every window of both forms, their medians, the bundle
-kernel's launches in each form's timed windows, the device's name and, on a
+labellings in each form's timed windows (``ops.env_step.labellings``: the
+bundle kernel's launches and the fused step's), the device's name and, on a
 card, its name and power limit from ``nvidia-smi``.  Without ``--cpu`` it
 runs on the card and raises when there is none (on the CPU both forms are
 the eager function).
@@ -61,7 +62,7 @@ def main(argv=None) -> int:
     from gymgo_tpu_torch.config import EnvConfig
     from gymgo_tpu_torch.core.state import batch_init_state, resolve_device
     from gymgo_tpu_torch.env.batch_env import BatchGoEnv, rollout
-    from gymgo_tpu_torch.ops.bundle_flood import BUNDLE_FLOOD
+    from gymgo_tpu_torch.ops.env_step import labellings
 
     dev = resolve_device("cpu" if args.cpu else None)
     on_card = dev.type == "cuda"
@@ -93,11 +94,11 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(forms, 0)
     for i in range(args.repeats):
         for form in forms:
-            before = BUNDLE_FLOOD.launches
+            before = labellings()
             t0 = time.perf_counter()
             window(form, states)
             dt = time.perf_counter() - t0
-            launches[form] += BUNDLE_FLOOD.launches - before
+            launches[form] += labellings() - before
             rates[form].append(args.batch * args.steps / dt)
             log(f"run {i} {form}: {dt:.4f}s  ({rates[form][-1]:,.0f} steps/s)")
     best = max(rates["compiled"])

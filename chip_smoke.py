@@ -266,9 +266,12 @@ the minmax route, which larger ones take (``core.flood.bundle_fits``):
      512, fused and op-by-op in turns, by CUDA events, beside the byte bound
      (``env_step_bytes``), with the device operations a step and each
      kernel's launches in one more replayed window (the counters set to 0
-     first); the three kernels alone and the bundle flood
-     at B = 12288 in graphs of 64; 64 stateless ``step_states`` in one graph
-     at B = 256 and 1, fused and op-by-op.  Alone:
+     first); (c) ``env_fused`` alone (``ptxas``' registers and spills, its
+     shared memory) against the chain it replaced on the carried path
+     (``env_sample``, ``env_rules``, the bundle flood, ``env_score``): equal
+     on one step with finished boards, then 64 steps in a graph each, in
+     turns, at B = 12288 and 512, beside the byte bound; 64 stateless
+     ``step_states`` in one graph at B = 256 and 1, fused and op-by-op.  Alone:
      ``python -c 'import torch, chip_smoke; chip_smoke.env_step_path(torch.device("cuda", 0))'``.
 
 Phases 12-14 are the play path, 15 the training path, 17-18 the host surface,
@@ -1898,19 +1901,20 @@ def compiled_path(dev, states, bundle_lib, minmax_lib):
     if caught:
         fail(f"25b: a replayed window made {len(caught)} host syncs: {caught[0].message}")
 
-    # (c) a replayed window and an eager one under the profiler: the bundle kernel's launches by the
-    # profiler's count and by the counter, kernels a step, the device's busy share.  The profiler has
-    # lost one kernel record of a window, replayed or eager, in some runs (64 of 65, where the counter and
-    # the bit-exact result say all 65 ran), so it is held to one a step, the seeding's record allowed lost.
+    # (c) a replayed window and an eager one under the profiler: the bundle labellings (the seeding's
+    # bundle kernel and a fused step's each step) by the profiler's count and by the counter, kernels a
+    # step, the device's busy share.  The profiler has lost one kernel record of a window, replayed or
+    # eager, in some runs (64 of 65, where the counter and the bit-exact result say all 65 ran), so it is
+    # held to one a step, the seeding's record allowed lost.
     profiles, seen = {}, {}
     for form, fn in (("compiled", lambda: env.rollout(gc, s, WINDOW)), ("eager", lambda: rollout(gc, s, WINDOW, cfg))):
         before = bundle_lib.launches
         wall_us, rows = device_profile(fn)
         counted = bundle_lib.launches - before
-        seen[form] = sum(c for _, c, k in rows if "BundleOp" in k)
+        seen[form] = sum(c for _, c, k in rows if "BundleOp" in k or "fused_kernel" in k)
         busy_us = sum(r[0] for r in rows)
         if not WINDOW <= seen[form] <= WINDOW + 1 or counted != WINDOW + 1 or busy_us <= 0:
-            fail(f"25c {form}: the profiler saw {seen[form]} bundle kernels and {busy_us} us of device time, the "
+            fail(f"25c {form}: the profiler saw {seen[form]} bundle labellings and {busy_us} us of device time, the "
                  f"counter {counted}; expected {WINDOW + 1}; kernels seen {[(k[:48], c) for _, c, k in rows[:8]]}")
         profiles[form] = (wall_us / WINDOW, busy_us / WINDOW, 100 * busy_us / wall_us,
                           sum(r[1] for r in rows) / WINDOW)
@@ -2724,7 +2728,8 @@ def env_step_path(dev, states=None):
     """Phase 30: the env step's hand kernels (``ops/env_step.py``) against
     the op-by-op step at B = 12288, 512 and 1 on the carried and the
     stateless path, bit for bit; then 64-step graphs of both timed by CUDA
-    events beside the byte bound, and the kernels' launches a step.
+    events beside the byte bound, and the kernels' launches a step; the
+    fused step of the carried path against the chain it replaced.
     ``states`` are steady-state 19x19 boards (phase 4's; made here by a
     rollout when None).  Returns the phase's numbers."""
     from gymgo_tpu_torch.config import HEURISTIC, EnvConfig
@@ -2815,31 +2820,53 @@ def env_step_path(dev, states=None):
               f"byte bound {row['bound_us_per_step']:.2f} us a step ({env_step_bytes(N, B)} bytes at 3.35 TB/s) "
               f"+ the flood's {row['flood_bound_us_per_step']:.2f}; launches a window "
               f"{row['launches_per_window']}", flush=True)
-    # the kernels alone at B = 12288 (sample with the reset, rules, score on one step's inputs), and the flood
-    B = BATCHES[0]
-    ps = tstep.seed_planes(states[:B].clone())
-    words = torch.randint(0, 1 << 31, (B,), generator=gen, device=dev, dtype=torch.int64)
-    acts = torch.empty((B,), dtype=torch.int32, device=dev)
-    env_step.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=True, words=words, actions=acts)
-    mover, opp, info = env_step.rules(*ps[:6], acts, atari=ps.atari, ko_surr=ps.ko_surr)
-    word = bf.bundle_flood_cuda(mover, opp)
-    nxt = tstep.seed_planes(states[:B].clone())
-    reward = torch.empty((B,), dtype=torch.float32, device=dev)
+    # (c) the fused step alone against the chain it replaced on the carried path (sample, rules, the bundle
+    # flood, score), 64 steps in a graph each, in turns, at B = 12288 and 512
+    layout_warp = 4 * 2 * ((N * N + 31) & ~31) + (((N + 2) * (N + 1) + 31) & ~31)
+    out["ptxas"] = ptxas_of(env_step.KERNELS, "fused_kernel")
+    print(f"[30c env_fused] -Xptxas -v: {out['ptxas']}; dynamic shared memory {layout_warp} B a warp (a board) and "
+          f"{2 * ((N * N + 31) & ~31)} B a block at 19x19", flush=True)
+    for B in BATCHES[:2]:
+        ps = tstep.seed_planes(states[:B].clone())
+        words = torch.randint(0, 1 << 31, (B,), generator=gen, device=dev, dtype=torch.int64)
+        acts = torch.empty((B,), dtype=torch.int32, device=dev)
+        reward = torch.empty((B,), dtype=torch.float32, device=dev)
 
-    def kernels():
-        env_step.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=True, words=words, actions=acts)
-        env_step.rules(*ps[:6], acts, atari=ps.atari, ko_surr=ps.ko_surr)
-        env_step.score(mover, opp, word, info, ps.invd, black=nxt.black, white=nxt.white, invd=nxt.invd,
-                       atari=nxt.atari, ko_surr=nxt.ko_surr, wtm=nxt.white_to_move, passed=nxt.prev_passed,
-                       done=nxt.done, reward=reward, komi=0.0, reward_method=HEURISTIC)
+        def outputs():
+            nxt = tstep.seed_planes(states[:B].clone())
+            return dict(black=nxt.black, white=nxt.white, invd=nxt.invd, atari=nxt.atari, ko_surr=nxt.ko_surr,
+                        wtm=nxt.white_to_move, passed=nxt.prev_passed, done=nxt.done, reward=reward, komi=0.0,
+                        reward_method=HEURISTIC)
 
-    kernel_ms = [graphed_ms(kernels, WINDOW, 20) for _ in range(2)]
-    flood_ms = graphed_ms(lambda: bf.bundle_flood_cuda(mover, opp), WINDOW, 20)
-    out["timing"]["kernels_b12288"] = {"ms": min(kernel_ms), "ms_again": max(kernel_ms), "flood_ms": flood_ms,
-                                      "bound_ms": 1e3 * env_step_bytes(N, B) / H100_BYTES_PER_S}
-    print(f"[30b env step kernels] 19x19 B={B}: sample + rules + score {kernel_ms[0]:.4f} ms a step (again "
-          f"{kernel_ms[1]:.4f}; graphs of 64), the bundle flood between them {flood_ms:.4f} ms; byte bound "
-          f"{out['timing']['kernels_b12288']['bound_ms']:.4f} ms", flush=True)
+        def chain(board, outs):
+            env_step.sample(*board[:6], atari=board.atari, ko_surr=board.ko_surr, reset=True, words=words,
+                            actions=acts)
+            mover, opp, info = env_step.rules(*board[:6], acts, atari=board.atari, ko_surr=board.ko_surr)
+            env_step.score(mover, opp, bf.bundle_flood_cuda(mover, opp), info, board.invd, **outs)
+
+        def fused(board, outs):
+            env_step.fused(board, words=words, reset=True, actions_out=acts, **outs)
+
+        # the two equal, finished boards restarted and sampled included (the chain resets a copy in place)
+        finished = int(ps.done.sum())
+        want, got = outputs(), outputs()
+        chain(tstep.PlanesState(*(None if x is None else x.clone() for x in ps)), want)
+        want_acts, want_reward = acts.clone(), reward.clone()
+        fused(ps, got)
+        if not (same(tuple(got.values())[:8], tuple(want.values())[:8]) and torch.equal(acts, want_acts)
+                and same(reward, want_reward)):
+            fail(f"30c B={B}: the fused step differs from the chain it replaced")
+        # then both time boards with no finished one, so that both read every board on every call
+        env_step.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=True)
+        outs = outputs()
+        row = {"fused_ms": [], "chain_ms": [], "finished_boards": finished}
+        for name, fn in (("fused", fused), ("chain", chain), ("chain", chain), ("fused", fused)):
+            row[f"{name}_ms"].append(graphed_ms(lambda: fn(ps, outs), WINDOW, 20))
+        row["bound_ms"] = 1e3 * env_step_bytes(N, B) / H100_BYTES_PER_S
+        out["timing"][f"fused_b{B}"] = row
+        print(f"[30c env_fused] 19x19 B={B}: equal to the chain (sample, rules, bundle flood, score) on every "
+              f"plane, flag, action and reward; a step in graphs of 64, in turns: fused {row['fused_ms']} ms, "
+              f"chain {row['chain_ms']} ms; byte bound {row['bound_ms']:.6f} ms", flush=True)
     # 64 stateless steps in one graph (the search's and GTP's step) at B = 256 and 1
     for B in (256, 1):
         s = states[:B].clone()
@@ -2854,6 +2881,41 @@ def env_step_path(dev, states=None):
               f"step, op-by-op {row['plain_ms']} ms; byte bound {row['bound_ms']:.6f} ms", flush=True)
     print(f"[30 env step] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+def ptxas_of(libs, kernel):
+    """``-Xptxas -v``'s registers and spills of the kernel whose mangled name
+    holds ``kernel``, from the build log of ``libs``' library."""
+    log = next((lib.build_log for lib in libs if lib.function() and lib.build_log), "")
+    lines, mine = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mine = kernel in line
+        elif mine and ("Used" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return " | ".join(lines) or "no build log"
+
+
+class Labellings:
+    """The bundle labellings run on the card as one counter, where the phases
+    count the bundle route's kernel: the bundle flood's launches and the
+    carried step's (``env_fused`` labels its boards inside;
+    ``ops.env_step.labellings``).  Setting it sets the bundle flood's count
+    and clears the fused step's."""
+
+    def __init__(self):
+        from gymgo_tpu_torch.ops import bundle_flood as bf
+        from gymgo_tpu_torch.ops import env_step
+
+        self.bundle, self.fused = bf.BUNDLE_FLOOD, env_step.ENV_FUSED
+
+    @property
+    def launches(self) -> int:
+        return self.bundle.launches + self.fused.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.bundle.launches, self.fused.launches = n, 0
 
 
 def kernel_counts(libs):
@@ -2910,8 +2972,8 @@ def late_main(boards: str, result: str) -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)
-    built = libs + (cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
+    libs = (Labellings(), mf.MINMAX_FLOOD)
+    built = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD, cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
     states = torch.load(boards).to(dev)
     out = {"seconds": {}}
     for name, fn, args in (("25", compiled_path, (dev, states, *libs)),
@@ -2956,9 +3018,9 @@ def main() -> int:
     ).stdout.strip()
     print(f"[1 device] torch: {kind} (count {count}); nvidia-smi: {smi}", flush=True)
 
-    # 2. build: one nvcc per source, started together (the env step's four entry points share one library)
-    libs = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD)  # the kernels phases 12-26 count
-    built = libs + (cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
+    # 2. build: one nvcc per source, started together (the env step's five entry points share one library)
+    libs = (Labellings(), mf.MINMAX_FLOOD)  # what phases 4 and 12-26 count
+    built = (bf.BUNDLE_FLOOD, mf.MINMAX_FLOOD, cf.CLAIM_FLOOD, gna.GROUP_NORM_ACT)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(built) + 1) as ex:
         list(ex.map(lambda lib: lib.function(), built + (es.ENV_RULES,)))
@@ -2994,7 +3056,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     states = batch_init_state(B, N, device=dev)
     torch.cuda.synchronize()
-    bf.BUNDLE_FLOOD.launches = mf.MINMAX_FLOOD.launches = cf.CLAIM_FLOOD.launches = 0
+    libs[0].launches = mf.MINMAX_FLOOD.launches = cf.CLAIM_FLOOD.launches = 0
     t0 = time.perf_counter()
     r = rollout(gen, states, WARMUP, cfg)
     states = r.final_states
@@ -3003,13 +3065,13 @@ def main() -> int:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     rates, runs, _ = timed_windows(rollout, gen, states, cfg, WINDOW, REPEATS)
-    launches, minmax_on_default = bf.BUNDLE_FLOOD.launches, mf.MINMAX_FLOOD.launches
+    launches, minmax_on_default = libs[0].launches, mf.MINMAX_FLOOD.launches
     states = runs[-1].final_states
     n_invalid = n_invalid + sum(x.invalid.sum() for x in runs)
     n_games = n_games + sum(x.dones.sum() for x in runs)
     expected = (WARMUP + 1) + REPEATS * (WINDOW + 1)
     if launches != expected:
-        fail(f"bundle flood launched {launches} times on the main path, expected {expected}")
+        fail(f"bundle labellings {launches} on the main path, expected {expected}")
     if minmax_on_default != 0 or cf.CLAIM_FLOOD.launches != 0:
         fail(f"minmax flood launched {minmax_on_default} times, claim flood {cf.CLAIM_FLOOD.launches} times, "
              f"at 19x19")
@@ -3279,12 +3341,14 @@ def main() -> int:
         "plain_ops_per_step": {k: v["plain_ops_per_step"] for k, v in env["timing"].items()
                                if k.startswith("window_")},
         "max_abs_err": 0,
-        # sample, rules and score a step at B = 12288; the step's planes and flags read and written once
-        "ms": env["timing"]["kernels_b12288"]["ms"],
-        "flood_ms": env["timing"]["kernels_b12288"]["flood_ms"],
+        # the fused step a step at B = 12288 (30c), the chain it replaced beside it; the step's planes and
+        # flags read and written once
+        "ms": min(env["timing"]["fused_b12288"]["fused_ms"]),
+        "chain_ms": min(env["timing"]["fused_b12288"]["chain_ms"]),
+        "ptxas": env["ptxas"],
         "plain_ms": min(env["timing"]["window_b12288"]["plain_us_per_step"]) / 1e3,
         "step_ms": min(env["timing"]["window_b12288"]["fused_us_per_step"]) / 1e3,
-        "bound_ms": env["timing"]["kernels_b12288"]["bound_ms"],
+        "bound_ms": env["timing"]["fused_b12288"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
         "timing": env["timing"],

@@ -24,14 +24,15 @@ Algorithm (the same as the JAX package's, so results agree bit for bit):
   mask (suicide rule) and the next step's ko-surround map.
 
 On the card.  ``fused_step`` decides, from what it can see, whether a step
-runs as the hand kernels of ``ops.env_step`` around the bundle flood: CUDA
-tensors, boards that take the bundle flood (``core.flood.bundle_fits``), and
-no ablation token.  There the step is three launches on the carried path
-(``env_rules``, the bundle flood, ``env_score``; the rollout's sampler adds
-``env_sample``) and five on the stateless one (``env_split`` and a bundle
-launch on the board before the move first), each result equal bit for bit to
-the op-by-op ``step_planes_plain``, which every other case runs: the CPU,
-boards over 22x22 and the ablations.
+runs as the hand kernels of ``ops.env_step``: CUDA tensors, boards that take
+the bundle flood (``core.flood.bundle_fits``), and no ablation token.  There
+a step that holds the carried ``atari`` plane is one launch
+(``env_fused``: the rollout's auto-reset and sampler, the rules, the bundle
+flood's labelling and the score), and one without it, the stateless step,
+five (``env_split``, a bundle launch on the board before the move,
+``env_rules``, the bundle flood, ``env_score``), each result equal bit for
+bit to the op-by-op ``step_planes_plain``, which every other case runs: the
+CPU, boards over 22x22 and the ablations.
 
 Ablation.  ``GYMGO_ABLATE`` (read at import, a comma list, as in the JAX
 package) names step components to skip so that the step's cost can be taken
@@ -247,8 +248,10 @@ def step_planes(ps: PlanesState, actions: torch.Tensor):
     planes.  On CPU tensors without ``atari`` the capture flood is the plain
     ``flood_or``, which checks its convergence on the host.
     Runs under the span ``env.rules``, its flood under ``env.flood`` and its
-    area sums under ``env.score`` (``utils.tracing``).  Under ``fused_step``
-    the hand kernels (``_step_planes_fused``), else ``step_planes_plain``.
+    area sums under ``env.score`` (``utils.tracing``); with the carried
+    ``atari`` plane on the card under ``env.fused`` alone.  Under
+    ``fused_step`` the hand kernels (``_step_planes_fused``), else
+    ``step_planes_plain``.
     """
     if fused_step(ps.black):
         return _step_planes_fused(ps, actions)
@@ -282,25 +285,22 @@ def step_window_row(ps: PlanesState, x: torch.Tensor, rows, t: int, config, *, w
     or the actions.  With ``reset`` the finished boards restart first
     (``reset_finished``, span ``env.reset``); the rest runs under the span
     ``env.step``.  The reward is ``core.score.reward_from_areas``'s under
-    ``config``.  Under ``fused_step`` one ``env_sample`` launch resets and
-    samples and ``env_score`` writes the rows; else the op-by-op code.
+    ``config``.  Under ``fused_step``, with the carried ``atari`` plane (a
+    rollout's), one ``env_fused`` launch restarts, samples, steps and writes
+    the rows, and the old planes are left as they were; else the op-by-op
+    code.
     """
     acts_out, rewards, dones, inval, obs = rows
-    fused = fused_step(ps.black)
-    if reset and not (fused and words):
+    fused = fused_step(ps.black) and ps.atari is not None
+    if reset and not fused:
         with tracing.span("env.reset"):
             reset_finished(ps)
     with tracing.span("env.step"):
         if fused:
-            acts = acts_out[t]
-            if words:  # the sampler's kernel resets the finished boards first
-                with tracing.span("env.sampler"):
-                    _kernels.sample(*ps[:6], atari=ps.atari, ko_surr=ps.ko_surr, reset=reset, words=x,
-                                    actions=acts)
             ps, _ = _step_planes_fused(
-                ps, acts if words else x, actions_out=None if words else acts, reward=rewards[t],
-                komi=config.komi, reward_method=config.reward_method, done_row=dones[t], invalid=inval[t],
-                states=None if obs is None else obs[t])
+                ps, None if words else x, words=x if words else None, reset=reset, actions_out=acts_out[t],
+                reward=rewards[t], komi=config.komi, reward_method=config.reward_method, done_row=dones[t],
+                invalid=inval[t], states=None if obs is None else obs[t])
             return ps
         if words:
             with tracing.span("env.sampler"):
@@ -315,11 +315,18 @@ def step_window_row(ps: PlanesState, x: torch.Tensor, rows, t: int, config, *, w
     return ps
 
 
-def _step_planes_fused(ps: PlanesState, actions: torch.Tensor, *, actions_out=None, **outputs):
+def _step_planes_fused(ps: PlanesState, actions, *, words=None, reset: bool = False, actions_out=None,
+                       **outputs):
     """``step_planes_plain``'s results from the hand kernels (CUDA planes
-    that ``fused_step`` takes): ``env_rules`` (span ``env.rules``), the
-    bundle flood (``env.flood``), ``env_score`` (``env.score``); without the
-    carried ``atari`` a bundle launch on the board before the move first.
+    that ``fused_step`` takes).
+
+    With the carried ``atari`` plane, one ``env_fused`` launch (span
+    ``env.fused``), which also takes the sampler's ``words`` in place of the
+    ``actions`` and, with ``reset``, restarts the finished boards first.
+    Without it the stateless chain: a bundle launch on the board before the
+    move, ``env_rules`` (span ``env.rules``), the bundle flood
+    (``env.flood``), ``env_score`` (``env.score``); ``words`` and ``reset``
+    are the caller's there.
 
     ``actions_out`` (int32 ``(B,)``) gets the actions, and ``outputs`` are
     more outputs of ``ops.env_step.score``, which ``step_window_row`` hands
@@ -328,30 +335,44 @@ def _step_planes_fused(ps: PlanesState, actions: torch.Tensor, *, actions_out=No
     """
     b, n, _ = ps.black.shape
     dev = ps.black.device
+
+    def new_planes():
+        """The step's planes and flags, and its info's outputs, to write."""
+        plane = torch.empty((b, n, n), dtype=torch.bool, device=dev)
+        new_ps = PlanesState(
+            plane, torch.empty_like(plane), torch.empty_like(plane),
+            *(torch.empty((b,), dtype=torch.bool, device=dev) for _ in range(3)),
+            atari=None if ps.atari is None else torch.empty((b, n, n), dtype=torch.int16, device=dev),
+            ko_surr=None if ps.ko_surr is None else torch.empty_like(plane))
+        outputs.setdefault("invalid", torch.empty((b,), dtype=torch.bool, device=dev))
+        info = (outputs["invalid"], ps.done, *(torch.empty((b,), dtype=torch.int32, device=dev) for _ in range(3)))
+        return new_ps, StepInfo(*info), dict(
+            black=new_ps.black, white=new_ps.white, invd=new_ps.invd, atari=new_ps.atari, ko_surr=new_ps.ko_surr,
+            wtm=new_ps.white_to_move, passed=new_ps.prev_passed, done=new_ps.done, captured=info[2],
+            black_area=info[3], white_area=info[4])
+
+    if ps.atari is not None:
+        with tracing.span("env.fused"):
+            new_ps, info, planes = new_planes()
+            if reset:  # a restarted board was not done
+                info = info._replace(was_done=torch.empty((b,), dtype=torch.bool, device=dev))
+                outputs["was_done"] = info.was_done
+            _kernels.fused(ps, words=words,
+                           actions=None if words is not None else _kernel_actions(actions, dev),
+                           actions_out=actions_out, reset=reset, **planes, **outputs)
+        return new_ps, info
     with tracing.span("env.rules"):
-        word = None
-        if ps.atari is None:
-            with tracing.span("env.flood"):
-                word = bundle_flood(ps.black.contiguous(), ps.white.contiguous())
-        mover, opp, info = _kernels.rules(ps.black, ps.white, ps.invd, ps.white_to_move, ps.prev_passed, ps.done,
-                                          _kernel_actions(actions, dev), atari=ps.atari, ko_surr=ps.ko_surr,
-                                          word=word, actions_out=actions_out)
+        with tracing.span("env.flood"):
+            word = bundle_flood(ps.black.contiguous(), ps.white.contiguous())
+        mover, opp, code = _kernels.rules(ps.black, ps.white, ps.invd, ps.white_to_move, ps.prev_passed, ps.done,
+                                          _kernel_actions(actions, dev), ko_surr=ps.ko_surr, word=word,
+                                          actions_out=actions_out)
         with tracing.span("env.flood"):
             word = bundle_flood(mover, opp)
         with tracing.span("env.score"):
-            plane = torch.empty((b, n, n), dtype=torch.bool, device=dev)
-            new_ps = PlanesState(
-                plane, torch.empty_like(plane), torch.empty_like(plane),
-                *(torch.empty((b,), dtype=torch.bool, device=dev) for _ in range(3)),
-                atari=None if ps.atari is None else torch.empty((b, n, n), dtype=torch.int16, device=dev),
-                ko_surr=None if ps.ko_surr is None else torch.empty_like(plane))
-            outputs.setdefault("invalid", torch.empty((b,), dtype=torch.bool, device=dev))
-            captured, black_area, white_area = (torch.empty((b,), dtype=torch.int32, device=dev) for _ in range(3))
-            _kernels.score(mover, opp, word, info, ps.invd, black=new_ps.black, white=new_ps.white, invd=new_ps.invd,
-                           atari=new_ps.atari, ko_surr=new_ps.ko_surr, wtm=new_ps.white_to_move,
-                           passed=new_ps.prev_passed, done=new_ps.done, captured=captured, black_area=black_area,
-                           white_area=white_area, **outputs)
-    return new_ps, StepInfo(outputs["invalid"], ps.done, captured, black_area, white_area)
+            new_ps, info, planes = new_planes()
+            _kernels.score(mover, opp, word, code, ps.invd, **planes, **outputs)
+    return new_ps, info
 
 
 def _step_planes(ps: PlanesState, actions: torch.Tensor):

@@ -12,7 +12,10 @@
 // for every cell of the longest path.
 //
 // label_board<Op> does one board with one warp; lane l owns the cells l,
-// l + 32, ...  An Op gives the class of a cell, its seed words, their
+// l + 32, ...  It is label_components<Op> (passes 2-5) and
+// store_components<Op> (pass 6): the env step's fused kernel (env_step.cu)
+// labels with the first and reads the words from shared memory in place of
+// the second.  An Op gives the class of a cell, its seed words, their
 // reduction and the output's layout.  Passes, a warp barrier between them:
 //
 //   1. class byte of every cell, from the two input planes, into a copy of
@@ -203,12 +206,13 @@ __device__ __forceinline__ void load_classes(const uint8_t* src_a, const uint8_t
   __syncwarp();
 }
 
-// Passes 2-6.  cls (bordered), parent and acc (Op::kWords arrays of `pitch`
-// ints) are this warp's own.
+// Passes 2-5.  cls (bordered), parent and acc (Op::kWords arrays of `pitch`
+// ints) are this warp's own.  Afterwards parent[i] is cell i's root and
+// acc[w * pitch + root] the reduction of its component's seeds, for every
+// lane: the pass ends on a warp barrier.
 template <class Op>
-__device__ __forceinline__ void label_board(int n, int m, int pitch, const uint16_t* where,
-                                            const uint8_t* cls, int* parent, int* acc,
-                                            typename Op::Out out, size_t out_base) {
+__device__ __forceinline__ void label_components(int n, int m, int pitch, const uint16_t* where,
+                                                 const uint8_t* cls, int* parent, int* acc) {
   const int lane = threadIdx.x & 31;
   const int row = n + 1;
   const unsigned below = (1u << lane) - 1, at_or_below = below | 1u << lane;
@@ -283,9 +287,13 @@ __device__ __forceinline__ void label_board(int n, int m, int pitch, const uint1
     }
   }
   __syncwarp();
+}
 
-  // 6. output
-  for (int i = lane; i < m; i += 32) {
+// Pass 6: every cell writes its component's words out.
+template <class Op>
+__device__ __forceinline__ void store_components(int m, int pitch, const int* parent, const int* acc,
+                                                 typename Op::Out out, size_t out_base) {
+  for (int i = threadIdx.x & 31; i < m; i += 32) {
     const int root = parent[i];
     int word[Op::kWords];
 #pragma unroll
@@ -294,6 +302,15 @@ __device__ __forceinline__ void label_board(int n, int m, int pitch, const uint1
   }
   // No barrier here: the next board's pass 1 writes cls only, which this pass
   // does not read, and ends on one.
+}
+
+// Passes 2-6.
+template <class Op>
+__device__ __forceinline__ void label_board(int n, int m, int pitch, const uint16_t* where,
+                                            const uint8_t* cls, int* parent, int* acc,
+                                            typename Op::Out out, size_t out_base) {
+  label_components<Op>(n, m, pitch, where, cls, parent, acc);
+  store_components<Op>(m, pitch, parent, acc, out, out_base);
 }
 
 // ------------------------------------------------------------ the kernel

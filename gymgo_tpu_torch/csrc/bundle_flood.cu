@@ -32,58 +32,16 @@
 // of 16 warps stride over the boards, three blocks resident on a
 // multiprocessor, so one board's loads overlap 47 others' labelling; staging
 // tiles of boards by bulk asynchronous copies measured no faster and is not
-// here.  This file holds what is the bundle flood's own: the three classes,
-// the seed word and the OR.
+// here.  What is the bundle flood's own, the three classes, the seed word and
+// the OR, is bundle_word.cuh's BundleOp, which the env step's fused kernel
+// (env_step.cu) labels its boards with too.
 
-#include "board_components.cuh"
-
-namespace {
-
-using namespace board_components;
-
-constexpr int kMaxCells = 511;  // the 9-bit code field
-constexpr int kMask9 = (1 << 9) - 1;
-constexpr int kBitA = 1 << 18;
-constexpr int kBitB = 1 << 19;
-
-struct BundleOp {
-  using Out = int32_t*;
-  static constexpr int kWords = 1;
-
-  static __device__ __forceinline__ uint8_t cell_class(bool a, bool b) {
-    return (a ? kClsA : 0) | (b ? kClsB : 0) | ((a || b) ? 0 : kClsE);
-  }
-
-  // A stone's seed: the codes of its empty neighbours, each beside its 9-bit
-  // complement; an empty cell's: which colours it touches.
-  static __device__ __forceinline__ void seed(uint8_t c, const uint8_t (&nc)[4], const int (&nbr)[4],
-                                              int /*m*/, int (&word)[1]) {
-    int lib = 0;
-    uint8_t touch = 0;
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      touch |= nc[d];
-      // code | (~code & kMask9) << 9 with code = nbr + 1, in one multiply-add:
-      // the fields do not overlap and the complement is kMask9 - code
-      if (nc[d] & kClsE) lib |= (kMask9 << 9) - ((1 << 9) - 1) * (nbr[d] + 1);
-    }
-    word[0] = (c & kClsE) ? ((touch & kClsA) ? kBitA : 0) | ((touch & kClsB) ? kBitB : 0) : lib;
-  }
-
-  static __device__ __forceinline__ void reduce(int /*w*/, int* at, int word, int /*m*/) {
-    if (word != 0) atomicOr(at, word);
-  }
-
-  static __device__ __forceinline__ void store(Out out, size_t i, const int (&word)[1]) {
-    out[i] = word[0];
-  }
-};
-
-}  // namespace
+#include "bundle_word.cuh"
 
 extern "C" int bundle_flood_launch(const void* mover, const void* opp, void* out, int batch, int n,
                                    void* stream) {
-  if (n < 1 || n * n > kMaxCells) return static_cast<int>(cudaErrorInvalidValue);
+  using namespace board_components;
+  if (n < 1 || n * n > kBundleCells) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_components<BundleOp>(mover, opp, static_cast<int32_t*>(out), batch,
                                                       n, static_cast<cudaStream_t>(stream)));
 }

@@ -78,7 +78,7 @@ class CudaKernelLib:
         self.argtypes = list(argtypes)
         self.counter = f"launches.{symbol}"
         self.build_seconds = None
-        self.build_log = ""  # nvcc's output: registers, shared memory, spills
+        self.build_log = ""  # nvcc's output: registers, shared memory, spills (kept beside the library)
         self._fn = None
         self._lock = threading.Lock()
 
@@ -101,6 +101,8 @@ class CudaKernelLib:
         headers exists."""
         lib = self.library_path()
         if lib.exists():
+            log = lib.with_suffix(".log")
+            self.build_log = log.read_text() if log.exists() else ""
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -112,6 +114,7 @@ class CudaKernelLib:
                 f"{proc.stdout}{proc.stderr}"
             )
         self.build_log = proc.stdout + proc.stderr
+        lib.with_suffix(".log").write_text(self.build_log)
         os.replace(tmp, lib)
         return lib
 

@@ -166,11 +166,12 @@ def measure(args, dev) -> dict:
     from gymgo_tpu_torch.core import actions as _actions
     from gymgo_tpu_torch.core import step as _step
     from gymgo_tpu_torch.ops import bundle_flood as _bundle
+    from gymgo_tpu_torch.ops.env_step import labellings
 
     gen = torch.Generator(device=dev).manual_seed(0)
     states = _steady_states(args, dev, gen)
     on_card = dev.type == "cuda"
-    launches0 = _bundle.BUNDLE_FLOOD.launches
+    launches0 = labellings()
     ps = _step.seed_planes(states)  # the rollout's carried planes: the kernel seeds atari once
     counts, stones, mismatch, check_launches = [], [], 0, 0
     t0 = time.perf_counter()
@@ -187,7 +188,7 @@ def measure(args, dev) -> dict:
                                                                             ps.white.contiguous())))
             check_launches += _bundle.BUNDLE_FLOOD.launches - before
     convs3 = torch.stack(counts).cpu().numpy()  # (T, 3, B)
-    step_launches = _bundle.BUNDLE_FLOOD.launches - launches0 - check_launches
+    step_launches = labellings() - launches0 - check_launches
     log(f"measure done {time.perf_counter() - t0:.1f}s shape={convs3[:, 0].shape} max={convs3[:, 0].max()} "
         f"(budget {args.maxk})")
     convs, convs_stone, convs_claim = convs3[:, 0], convs3[:, 1], convs3[:, 2]
@@ -213,8 +214,8 @@ def measure(args, dev) -> dict:
         print(f"block K={k:5d}: mean block-max={blocks.mean():6.1f}  work ratio vs batch-max={work_ratio[k]:.3f}")
     if on_card:
         print(f"kernel word == counted word at maxk={args.maxk}: {t - mismatch} of {t} steps "
-              f"({mismatch} steps differ); bundle kernel launches: steps {step_launches} "
-              f"(1 a step + 1 seed), checks {check_launches}")
+              f"({mismatch} steps differ); bundle labellings: steps {step_launches} "
+              f"(1 a step, the fused step's, + 1 seed), checks {check_launches}")
     return {"mode": "measure", "board": n, "batch": b, "steps": t, "maxk": args.maxk,
             "mean_stones": float(torch.stack(stones).float().mean()) / b,
             "per_env": _stats(convs), "stone_bits": _stats(convs_stone), "claim_bits": _stats(convs_claim),

@@ -1,5 +1,7 @@
 """The port on a CUDA card: each flood kernel (bundle, min/max, claim) against
-its plain version, on the rollout of its route, and on bad input, the min/max
+its plain version, on the rollout of its route (the bundle route's counted as
+labellings, ``ops.env_step.labellings``: the carried step labels its boards
+inside ``env_fused``), and on bad input, the min/max
 and claim kernels up to 181x181; the stateless step, the area score,
 the net and the search against the CPU plain path; the served net's fused
 GroupNorm kernel against the library's operations; the step's ablation
@@ -27,6 +29,7 @@ from gymgo_tpu_torch.core.state import batch_init_state
 from gymgo_tpu_torch.env.batch_env import rollout
 from gymgo_tpu_torch.ops import bundle_flood as tbundle
 from gymgo_tpu_torch.ops import claim_flood as tclaim
+from gymgo_tpu_torch.ops.env_step import labellings
 from gymgo_tpu_torch.ops import minmax_flood as tminmax
 from gymgo_tpu_torch.utils import graphs
 from torch_boards import (adversarial_boards, component_boards, midgame_states, random_boards,
@@ -74,9 +77,9 @@ def test_kernel_matches_plain(n, cuda_device):
 def test_rollout_goes_through_the_kernel_and_replays_on_cpu(cuda_device):
     cfg = EnvConfig(board_size=9, batch_size=96, reward_method="heuristic", auto_reset=True)
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     r = rollout(g, batch_init_state(96, 9, device=cuda_device), 150, cfg)
-    assert tbundle.BUNDLE_FLOOD.launches == launches + 151  # one per step + the seed
+    assert labellings() == launches + 151  # one per step + the seed
     assert r.dones.any() and not r.invalid.any()
     acts = iter(r.actions.cpu())
     rc = rollout(torch.Generator(), batch_init_state(96, 9, device="cpu"), 150, cfg,
@@ -120,12 +123,12 @@ def test_minmax_route_rollout_goes_through_its_kernel_and_replays_on_cpu(cuda_de
     with monkeypatch.context() as m:
         m.setattr(tflood, "bundle_fits", lambda _n: False)  # the minmax route at this size
         g = torch.Generator(device=cuda_device).manual_seed(0)
-        minmax, bundle = tminmax.MINMAX_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches
+        minmax, bundle = tminmax.MINMAX_FLOOD.launches, labellings()
         claim = tclaim.CLAIM_FLOOD.launches
         r = rollout(g, batch_init_state(96, 9, device=cuda_device), 150, cfg)
         assert tminmax.MINMAX_FLOOD.launches == minmax + 151  # one per step + the seed
         assert tclaim.CLAIM_FLOOD.launches == claim + 150  # the step's claims
-        assert tbundle.BUNDLE_FLOOD.launches == bundle
+        assert labellings() == bundle
         assert r.dones.any() and not r.invalid.any()
         acts = iter(r.actions.cpu())
         rc = rollout(torch.Generator(), batch_init_state(96, 9, device="cpu"), 150, cfg,
@@ -231,10 +234,10 @@ def test_64x64_compiled_window_equals_eager_without_a_host_sync(cuda_device):
     assert env.compiled
     start = env.rollout(torch.Generator(device=cuda_device).manual_seed(11), env.reset(), steps).final_states
     gc, ge = (torch.Generator(device=cuda_device).manual_seed(12) for _ in range(2))
-    launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+    launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, labellings())
     with _no_host_sync():
         got = env.rollout(gc, start, steps)
-    counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+    counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, labellings())
     assert tuple(x - y for x, y in zip(counted, launches)) == (steps + 1, steps, 0)
     with graphs.eager():
         want = env.rollout(ge, start, steps)
@@ -314,10 +317,10 @@ def test_stateless_step_matches_cpu_without_a_host_sync(n, cuda_device):
     want_states, want_info = tstep.step_states(states, acts)
     on_card, acts_card = states.to(cuda_device), acts.to(cuda_device)
     tstep.step_states(on_card, acts_card)  # build the kernel outside the sync check
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     with _no_host_sync():
         got_states, got_info = tstep.step_states(on_card, acts_card)
-    assert tbundle.BUNDLE_FLOOD.launches == launches + 2  # the board before the move and after it
+    assert labellings() == launches + 2  # the board before the move and after it
     assert torch.equal(got_states.cpu(), want_states)
     for name in want_info._fields:
         assert torch.equal(getattr(got_info, name).cpu(), getattr(want_info, name)), name
@@ -329,11 +332,11 @@ def test_areas_match_cpu_without_a_host_sync(n, cuda_device, monkeypatch):
     states = torch.from_numpy(states_on_boards(n, 6))
     on_card = states.to(cuda_device)
     tscore.areas(on_card)  # build the kernel outside the sync check
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     with _no_host_sync():
         got_areas = tscore.areas(on_card)
         got_sign = tscore.winning(on_card, 0.5)
-    assert tbundle.BUNDLE_FLOOD.launches == launches + 2
+    assert labellings() == launches + 2
     for got, want in zip(got_areas, tscore.areas(states)):
         assert torch.equal(got.cpu(), want)
     assert torch.equal(got_sign.cpu(), tscore.winning(states, 0.5))
@@ -342,7 +345,7 @@ def test_areas_match_cpu_without_a_host_sync(n, cuda_device, monkeypatch):
     big[0, 0, 3, 3] = 1
     claim = tclaim.CLAIM_FLOOD.launches
     black_area, white_area = tscore.areas(big)
-    assert tbundle.BUNDLE_FLOOD.launches == launches + 2 and tclaim.CLAIM_FLOOD.launches == claim + 1
+    assert labellings() == launches + 2 and tclaim.CLAIM_FLOOD.launches == claim + 1
     assert black_area.tolist() == [625, 0] and white_area.tolist() == [0, 0]
     # the score is the same function by the claim kernel
     monkeypatch.setattr(tflood, "bundle_fits", lambda _n: False)
@@ -355,11 +358,11 @@ def test_areas_over_22x22_match_cpu_without_a_host_sync(n, cuda_device):
     states = torch.from_numpy(states_on_boards(n, 6))
     on_card = states.to(cuda_device)
     tscore.areas(on_card)  # build the kernel outside the sync check
-    launches, claim = tbundle.BUNDLE_FLOOD.launches, tclaim.CLAIM_FLOOD.launches
+    launches, claim = labellings(), tclaim.CLAIM_FLOOD.launches
     with _no_host_sync():
         got_areas = tscore.areas(on_card)
         got_sign = tscore.winning(on_card, 0.5)
-    assert tclaim.CLAIM_FLOOD.launches == claim + 2 and tbundle.BUNDLE_FLOOD.launches == launches
+    assert tclaim.CLAIM_FLOOD.launches == claim + 2 and labellings() == launches
     for got, want in zip(got_areas, tscore.areas(states)):
         assert torch.equal(got.cpu(), want)
     assert torch.equal(got_sign.cpu(), tscore.winning(states, 0.5))
@@ -409,10 +412,10 @@ def test_search_on_the_card_matches_cpu_given_the_noise(cuda_device, float32_wit
     states = torch.from_numpy(midgame_states(9, 32, 30, 4))
     noise = torch.from_numpy(np.random.default_rng(0).gumbel(size=(32, 82)).astype(np.float32))
     want = run_gumbel_mcts(None, states, cpu, num_simulations=16, max_considered=8, gumbel=noise)
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     got = run_gumbel_mcts(None, states.to(cuda_device), card, num_simulations=16, max_considered=8,
                           gumbel=noise.to(cuda_device))
-    assert tbundle.BUNDLE_FLOOD.launches == launches + 32  # a seed and a step per simulation
+    assert labellings() == launches + 32  # a seed and a step per simulation
     assert torch.equal(got.sampled_actions.cpu(), want.sampled_actions)
     # a float near-tie may flip a visit in an env: at most one of the 32
     differ = (got.actions.cpu() != want.actions) | (got.root_visits.cpu() != want.root_visits).any(1)
@@ -553,7 +556,7 @@ def test_go_env_on_the_card_matches_native_and_cpu(cuda_device):
             GoEnv(9, reward_method="heuristic", backend="torch", device="cpu")]
     assert [e.backend for e in envs] == ["torch", "native", "torch"]
     rng = np.random.RandomState(0)
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     for t in range(400):
         valid = np.flatnonzero(envs[0].valid_moves())
         a = int(rng.choice(valid))
@@ -564,7 +567,7 @@ def test_go_env_on_the_card_matches_native_and_cpu(cuda_device):
             assert np.array_equal(i["invalid_moves"], info["invalid_moves"])
         if done:
             break
-    assert tbundle.BUNDLE_FLOOD.launches >= launches + 2 * (t + 1)  # each step classifies, then floods
+    assert labellings() >= launches + 2 * (t + 1)  # each step classifies, then floods
     for canonical in (False, True):
         want = envs[1].children(canonical)
         assert np.array_equal(envs[0].children(canonical), want) and np.array_equal(envs[2].children(canonical), want)
@@ -580,14 +583,14 @@ def test_gtp_genmove_with_gumbel_search_on_the_card_is_legal(cuda_device):
     eng = GTPEngine(9, 7.5, mover, match_pass_rule=True, backend="native")
     referee = NativeGoEngine(9)
     state = np.zeros((6, 9, 9), np.int8)
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     for ply in range(8):
         resp, err, _ = eng.handle(f"genmove {'b' if ply % 2 == 0 else 'w'}")
         assert not err and resp.startswith("= ")
         state, status = referee.next_state(state, _vertex_to_action(resp[2:].strip(), 9))
         assert status == 0
     np.testing.assert_array_equal(eng.state, state)
-    assert tbundle.BUNDLE_FLOOD.launches >= launches + 8 * 8  # the search steps on the card
+    assert labellings() >= launches + 8 * 8  # the search steps on the card
 
 
 def test_gtp_engine_on_the_card_matches_native(cuda_device):
@@ -598,10 +601,10 @@ def test_gtp_engine_on_the_card_matches_native(cuda_device):
     card = GTPEngine(9, 6.5, seed=3, match_pass_rule=True, backend="torch", device=cuda_device)
     native = GTPEngine(9, 6.5, seed=3, match_pass_rule=True, backend="native")
     assert card.backend == "torch" and card.device.type == "cuda"
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     for line in session:
         assert card.handle(line) == native.handle(line), line
-    assert tbundle.BUNDLE_FLOOD.launches > launches
+    assert labellings() > launches
     np.testing.assert_array_equal(card.state, native.state)
 
 
@@ -624,8 +627,8 @@ def test_checked_step_on_the_card_raises_on_a_bad_batch(cuda_device):
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_logical_shards_on_the_card_equal_the_unsharded_rollout(k, cuda_device):
     """k logical shards of one card: the same rollout bit for bit from the same
-    generator, the bundle kernel launched once per shard per step plus once
-    per shard for the seeding."""
+    generator, a bundle labelling (the fused step's) once per shard per step
+    plus one bundle launch per shard for the seeding."""
     from gymgo_tpu_torch.parallel import ShardedGoEnv, make_mesh
 
     cfg = EnvConfig(board_size=19, batch_size=512, reward_method="heuristic", auto_reset=True)
@@ -633,9 +636,9 @@ def test_logical_shards_on_the_card_equal_the_unsharded_rollout(k, cuda_device):
                     200, cfg).final_states
     plain = rollout(torch.Generator(device=cuda_device).manual_seed(7), start, 32, cfg)
     env = ShardedGoEnv(cfg, make_mesh(devices=[cuda_device] * k))
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     sharded = env.rollout(torch.Generator(device=cuda_device).manual_seed(7), start, 32)
-    assert tbundle.BUNDLE_FLOOD.launches - launches == k * (32 + 1)
+    assert labellings() - launches == k * (32 + 1)
     for field in ("actions", "rewards", "dones", "invalid", "final_states"):
         assert torch.equal(getattr(sharded, field), getattr(plain, field)), field
 
@@ -643,9 +646,9 @@ def test_logical_shards_on_the_card_equal_the_unsharded_rollout(k, cuda_device):
 def test_fuzz_soak_on_the_card(cuda_device):
     from gymgo_tpu_torch.scripts.fuzz_parity import fuzz
 
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     checked = fuzz(9, 8, 120, cuda_device)
-    assert checked >= 8 * 50 and tbundle.BUNDLE_FLOOD.launches - launches == 2 * checked // 8
+    assert checked >= 8 * 50 and labellings() - launches == 2 * checked // 8
 
 
 _ABLATIONS = [("hit",), ("ko",), ("capsum",), ("bundle",), ("areas",), ("invd",),
@@ -665,17 +668,17 @@ def test_ablated_step_on_the_card_matches_cpu(tokens, cuda_device):
     acts_cpu = torch.from_numpy(np.random.default_rng(3).integers(0, 82, 96).astype(np.int32))
     previous = tstep.set_ablate(tokens)
     try:
-        launches = tbundle.BUNDLE_FLOOD.launches
+        launches = labellings()
         r = rollout(torch.Generator(device=cuda_device).manual_seed(4), start, 48, cfg)
         per_step = 0 if "bundle" in tokens else 1
-        assert tbundle.BUNDLE_FLOOD.launches - launches == 48 * per_step + 1
+        assert labellings() - launches == 48 * per_step + 1
         acts = iter(r.actions.cpu())
         rc = rollout(torch.Generator(), start.cpu(), 48, cfg, policy_fn=lambda _g, _s: next(acts))
         for field in ("final_states", "rewards", "dones", "invalid"):
             assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
-        launches = tbundle.BUNDLE_FLOOD.launches
+        launches = labellings()
         got, got_info = tstep.step_states(start, acts_cpu.to(cuda_device))
-        assert tbundle.BUNDLE_FLOOD.launches - launches == 1 + per_step
+        assert labellings() - launches == 1 + per_step
         want, want_info = tstep.step_states(start.cpu(), acts_cpu)
     finally:
         tstep.set_ablate(previous)
@@ -725,9 +728,9 @@ def test_compiled_rollout_equals_eager_over_replays_and_a_shape_change(policy, c
     kw = {} if policy is None else {"policy_fn": policy}
     gc, ge = (torch.Generator(device=cuda_device).manual_seed(3) for _ in range(2))
     for rows in (96, 96, 96, 40, 40, 40):  # a first call, two replays; then a new shape
-        launches = tbundle.BUNDLE_FLOOD.launches
+        launches = labellings()
         got = env.rollout(gc, states[:rows], 30, **kw)
-        assert tbundle.BUNDLE_FLOOD.launches - launches == 30 + 1  # one a step, one seeding
+        assert labellings() - launches == 30 + 1  # one a step, one seeding
         want = rollout(ge, states[:rows], 30, cfg, **kw)
         for field in _FIELDS:
             assert torch.equal(getattr(got, field), getattr(want, field)), field
@@ -758,9 +761,9 @@ def test_compiled_step_and_sampler_equal_eager(cuda_device):
     for rows in (64, 64, 64, 17, 17, 17):
         got_a, want_a = env.uniform_random_actions(gc, states[:rows]), uniform_random_actions(ge, states[:rows])
         assert torch.equal(got_a, want_a)
-        launches = tbundle.BUNDLE_FLOOD.launches
+        launches = labellings()
         got_s, got_r = env.step(states[:rows], got_a)
-        assert tbundle.BUNDLE_FLOOD.launches - launches == 2  # the stateless step: before and after the move
+        assert labellings() - launches == 2  # the stateless step: before and after the move
         want_s, want_r = batch_step(states[:rows], want_a, cfg)
         assert torch.equal(got_s, want_s) and all(torch.equal(x, y) for x, y in zip(got_r, want_r))
         states = torch.cat([got_s, states[rows:]])
@@ -777,12 +780,12 @@ def test_replayed_windows_make_no_host_sync(cuda_device):
     first = env.rollout(g, states, 16)  # runs eagerly and captures
     actions = env.uniform_random_actions(g, first.final_states)
     env.step(first.final_states, actions)
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     with _no_host_sync():
         r = env.rollout(g, first.final_states, 16)
         env.uniform_random_actions(g, r.final_states)
         env.step(r.final_states, actions)
-    assert tbundle.BUNDLE_FLOOD.launches - launches == 16 + 1 + 2
+    assert labellings() - launches == 16 + 1 + 2
     assert not r.invalid.any()
 
 
@@ -798,9 +801,9 @@ def test_minmax_route_keeps_the_eager_rollout_on_the_card(cuda_device, monkeypat
         m.setattr(tflood, "bundle_fits", lambda _n: False)  # the minmax route at this size
         assert env.compiled
         for i in range(3):
-            launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+            launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, labellings())
             got = env.rollout(torch.Generator(device=cuda_device).manual_seed(6 + i), states, 20)
-            counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+            counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, labellings())
             assert tuple(x - y for x, y in zip(counted, launches)) == (20 + 1, 20, 0)
             with graphs.eager():
                 want = env.rollout(torch.Generator(device=cuda_device).manual_seed(6 + i), states, 20)
@@ -828,11 +831,11 @@ def test_minmax_route_replays_windows_and_steps_without_a_host_sync(cuda_device,
         first = env.rollout(g, states, 16)  # runs eagerly and captures
         actions = env.uniform_random_actions(g, first.final_states)
         env.step(first.final_states, actions)
-        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+        launches = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, labellings())
         with _no_host_sync():
             r = env.rollout(g, first.final_states, 16)
             got_s, got_r = env.step(r.final_states, actions)
-        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, tbundle.BUNDLE_FLOOD.launches)
+        counted = (tminmax.MINMAX_FLOOD.launches, tclaim.CLAIM_FLOOD.launches, labellings())
         # the window: a min/max classification a step and one seeding, a claim flood a step; the
         # stateless step: two classifications (before and after the move) and one claim flood
         assert tuple(x - y for x, y in zip(counted, launches)) == (16 + 1 + 2, 16 + 1, 0)
@@ -891,9 +894,9 @@ def test_compiled_sharded_env_equals_the_eager_unsharded_one(k, cuda_device):
     states = _midgame(cuda_device, 19, 128)
     gc, ge = (torch.Generator(device=cuda_device).manual_seed(8) for _ in range(2))
     for _ in range(3):
-        launches = tbundle.BUNDLE_FLOOD.launches
+        launches = labellings()
         got = env.rollout(gc, states, 16)
-        assert tbundle.BUNDLE_FLOOD.launches - launches == k * (16 + 1)
+        assert labellings() - launches == k * (16 + 1)
         want = rollout(ge, states, 16, cfg)
         for field in _FIELDS:
             assert torch.equal(getattr(got, field), getattr(want, field)), field
@@ -1007,9 +1010,9 @@ def test_compiled_search_equals_eager_over_replays_and_a_batch_change(kind, cuda
     gc, ge = (torch.Generator(device=cuda_device).manual_seed(21) for _ in range(2))
     per_search = 2 * 16 if kind == "gumbel" else 2 * 16 // 2  # a step (2 launches) a simulation / a wave
     for rows in (48, 48, 48, 20, 20):  # a first call, two replays; then a new batch
-        launches = tbundle.BUNDLE_FLOOD.launches
+        launches = labellings()
         got = _search(kind, gc, states[:rows], net)
-        assert tbundle.BUNDLE_FLOOD.launches - launches == per_search
+        assert labellings() - launches == per_search
         want = _search(kind, ge, states[:rows], net, fn="eager")
         assert all(torch.equal(x, y) for x, y in zip(_flat(got), _flat(want)))
         assert torch.equal(gc.get_state(), ge.get_state())
@@ -1032,11 +1035,11 @@ def test_replayed_search_and_move_make_no_host_sync(cuda_device):
             _search(kind, g, states, net)
     kw = dict(num_simulations=8, max_considered=4)
     selfplay.selfplay_gumbel_rollout(g, states, net, 1, cfg, **kw)  # the move's capture
-    launches = tbundle.BUNDLE_FLOOD.launches
+    launches = labellings()
     with _no_host_sync():
         _, rows, _ = selfplay._move(g, states, (None,), None, net=net, config=cfg, act=selfplay._act_gumbel,
                                     settings=tuple(sorted(dict(pass_min_stones=0, **kw).items())))
-    assert tbundle.BUNDLE_FLOOD.launches - launches == 2 * 8 + 2  # the search's steps and the move's
+    assert labellings() - launches == 2 * 8 + 2  # the search's steps and the move's
     assert not rows[6].any()  # no invalid action
 
 

@@ -1,10 +1,12 @@
 """The env step's hand kernels (``ops/env_step.py``, ``csrc/env_step.cu``) on
 a CUDA card against the op-by-op step they replace: every output equal bit
-for bit on the carried and the stateless path, over random games and
-hand-built positions; the compiled rollout and a graphed Gumbel search equal
-to themselves with the plain step in the kernels' place; one launch a step
-of each kernel; at most 8 device operations a step in a captured window; the
-minmax route, boards over 22x22 and the ablations keep the plain step.
+for bit on the carried path (one ``env_fused`` launch a step) and the
+stateless path (the chain around the bundle flood), over random games and
+hand-built positions; the compiled rollout, from played and from finished
+boards, and a graphed Gumbel search equal to themselves with the plain step
+in the kernels' place; the launches a step of each kernel; at most 4 device
+operations a step in a captured window; the minmax route, boards over 22x22
+and the ablations keep the plain step.
 Imports no JAX (``python -m pytest --noconftest
 tests/test_torch_cuda_env_step.py -m cuda``); every test skips where there is
 no card.
@@ -81,13 +83,17 @@ def _scripts(n):
     """Hand-built positions, each with three actions: ko taken, then refused;
     suicide refused; two groups captured at the edge, then a double pass;
     a pass after a pass; an occupied point and out-of-range actions; a
-    finished board.  Actions as (row, col), "pass" or a flat int."""
+    finished board; a group without a liberty (which play never makes) and a
+    cell of both colours beside it.  Actions as (row, col), "pass" or a flat
+    int."""
     ko = crafted_state(n, black=[(1, 2), (2, 1), (3, 2)], white=[(1, 3), (2, 4), (3, 3), (2, 2)])
     suicide = crafted_state(n, black=[(0, 1)])
     edge = crafted_state(n, black=[(1, 0), (1, 2), (0, 3)], white=[(0, 0), (0, 2), (4, 4)])
     passed = crafted_state(n, black=[(2, 2)], white=[(3, 3)], white_to_move=True, prev_passed=True)
     occupied = crafted_state(n, black=[(2, 2)], white=[(2, 3)])
     done = crafted_state(n, black=[(1, 1)], done=True)
+    dead = crafted_state(n, black=[(0, 0), (0, 1)], white=[(1, 0), (1, 1), (0, 2)])
+    dead[1, 4, 4] = dead[0, 4, 4] = 1
     return [
         (ko, [(2, 3), (2, 2), "pass"]),  # black captures into ko; white may not retake
         (suicide, [(1, 0), (0, 0), "pass"]),  # white's (0, 0) has no liberty and captures nothing
@@ -95,6 +101,7 @@ def _scripts(n):
         (passed, ["pass", (0, 0), "pass"]),  # the second pass ends the game; a move after it freezes
         (occupied, [(2, 3), -1, n * n + 1]),
         (done, [(0, 0), "pass", 3]),
+        (dead, [(2, 2), (3, 0), "pass"]),  # white's move takes the dead group statelessly; carried planes keep it
     ]
 
 
@@ -162,15 +169,22 @@ def test_fused_step_equals_the_op_by_op_step(b, n, cuda_device):
 
 
 @pytest.mark.parametrize("kind,method,auto_reset", [("sampler", "heuristic", True), ("sampler", "real", False),
-                                                    ("policy_fn", "real", True)])
+                                                    ("policy_fn", "real", True), ("finished", "heuristic", True),
+                                                    ("finished", "real", False)])
 def test_rollout_equals_the_op_by_op_rollout(kind, method, auto_reset, cuda_device):
+    """``finished``: the sampler from boards of which every third is
+    finished, restarted by the fused step at once under ``auto_reset``,
+    frozen without it."""
     from gymgo_tpu_torch.core.actions import uniform_random_actions
 
     cfg = EnvConfig(board_size=19, batch_size=512, komi=7.5 if method == "real" else 0.0, reward_method=method,
                     auto_reset=auto_reset)
     env = BatchGoEnv(cfg, device=cuda_device)
     start = _random_games(cuda_device, 512, 19, 5)
-    kw = {} if kind == "sampler" else {"policy_fn": uniform_random_actions}
+    if kind == "finished":
+        start[0::3, 5] = 1
+        start[0::3, 3] = 1
+    kw = {} if kind != "policy_fn" else {"policy_fn": uniform_random_actions}
     for _ in range(2):  # the capture, then a replay
         got = env.rollout(torch.Generator(device=cuda_device).manual_seed(9), start, 64, **kw)
     with _plain_step():
@@ -178,10 +192,22 @@ def test_rollout_equals_the_op_by_op_rollout(kind, method, auto_reset, cuda_devi
     for field in ("actions", "rewards", "dones", "invalid", "final_states"):
         _equal(getattr(got, field), getattr(want, field), field)
     assert want.dones.any() and not want.invalid.any()
+    if kind == "finished":  # restarted at the first step, or frozen
+        assert bool(want.dones[0, 0::3].any()) != auto_reset
+
+
+_CHAIN = (env_step.ENV_SAMPLE, env_step.ENV_SPLIT, env_step.ENV_RULES, env_step.ENV_SCORE, tbundle.BUNDLE_FLOOD)
 
 
 def _counts():
-    return [lib.launches for lib in (*env_step.KERNELS, tbundle.BUNDLE_FLOOD)]
+    """The launches of sample, split, rules, score and the bundle flood, and
+    of the fused step."""
+    return [lib.launches for lib in _CHAIN], env_step.ENV_FUSED.launches
+
+
+def _since(before):
+    (chain, fused), (chain0, fused0) = _counts(), before
+    return [x - y for x, y in zip(chain, chain0)], fused - fused0
 
 
 def test_each_kernel_launches_once_a_step(cuda_device):
@@ -189,15 +215,15 @@ def test_each_kernel_launches_once_a_step(cuda_device):
     states = _random_games(cuda_device, 64, 9, 1)
     before = _counts()
     rollout(torch.Generator(device=cuda_device).manual_seed(1), states, 20, cfg)
-    # sample, split, rules, score, bundle: the seeding floods once
-    assert [x - y for x, y in zip(_counts(), before)] == [20, 0, 20, 20, 21]
+    # sample, split, rules, score, bundle: the seeding floods once; the fused step a step
+    assert _since(before) == ([0, 0, 0, 0, 1], 20)
     before = _counts()
     tstep.step_states(states, torch.zeros(64, dtype=torch.int32, device=cuda_device))
-    assert [x - y for x, y in zip(_counts(), before)] == [0, 1, 1, 1, 2]
+    assert _since(before) == ([0, 1, 1, 1, 2], 0)
     ps = tstep.seed_planes(states)
     before = _counts()
     tstep.step_planes(ps, torch.zeros(64, dtype=torch.int32, device=cuda_device))
-    assert [x - y for x, y in zip(_counts(), before)] == [0, 0, 1, 1, 1]
+    assert _since(before) == ([0, 0, 0, 0, 0], 1)
 
 
 def test_a_captured_window_holds_at_most_8_operations_a_step(cuda_device):
@@ -210,10 +236,11 @@ def test_a_captured_window_holds_at_most_8_operations_a_step(cuda_device):
     (graph,) = env._rollout.graphs.values()
     table = graph.table
     assert graph.replays == 1 and table.chain
-    assert table.ops <= 8 * 64, table.ops
+    assert table.ops <= 4 * 64, table.ops
     layers = {path.split("/")[-1].removeprefix("gymgo.") for path in table.paths()}
-    assert {"env.sampler", "env.rules", "env.flood", "env.score"} <= layers
-    assert table.counts["launches.env_rules_launch"] == 64 and table.counts["launches.env_sample_launch"] == 64
+    assert {"env.sampler", "env.fused", "env.flood"} <= layers
+    assert table.counts["launches.env_fused_launch"] == 64
+    assert not any(table.counts.get(f"launches.env_{name}_launch") for name in ("sample", "rules", "score"))
 
 
 @pytest.mark.parametrize("b", [1, 256])

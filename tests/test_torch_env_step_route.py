@@ -160,6 +160,15 @@ def test_the_wrappers_refuse_cpu_tensors_and_inconsistent_arguments(no_launch):
     with pytest.raises(ValueError, match="reward method"):
         env_step.score(black, white, word, word[:, 0, 0].contiguous(), invd, reward=torch.zeros(3),
                        reward_method="win")
+    board = tstep.PlanesState(black, white, invd, wtm, passed, done, atari=black.to(torch.int16))
+    with pytest.raises(ValueError, match="CUDA"):
+        env_step.fused(board, actions=acts)
+    with pytest.raises(ValueError, match="atari"):  # the fused step is the carried path's
+        env_step.fused(board._replace(atari=None), actions=acts)
+    with pytest.raises(ValueError, match="either"):  # the sampler's words or the actions, not both
+        env_step.fused(board, words=acts.long(), actions=acts)
+    with pytest.raises(ValueError, match="reward method"):
+        env_step.fused(board, actions=acts, reward=torch.zeros(3), reward_method="win")
 
 
 def test_the_plain_step_is_the_op_by_op_step_on_the_cpu():
